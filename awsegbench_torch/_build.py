@@ -31,7 +31,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 # Per-source extra flags. The splat mask must equal its plain version bit
 # for bit, so no multiply-add contraction may move a ``d2 <= r*r`` decision.
 EXTRA_FLAGS = {'splat': ['-fmad=false']}
-KERNELS = ('sr_attention', 'seg_head', 'splat')
+KERNELS = ('sr_attention', 'sr_attention_bwd', 'seg_head', 'seg_head_train',
+           'splat')
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

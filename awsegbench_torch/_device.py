@@ -24,10 +24,13 @@ def const(make: Callable, *args, device: torch.device,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``make(*args)`` (numpy or a sequence) as a tensor on ``device``,
     copied there once and reused. A fresh host-to-device copy of a small
-    table on every call would make the host wait for the card each time."""
+    table on every call would make the host wait for the card each time.
+    The table is made outside inference mode, so one first made by an eval
+    step can still enter a train step's autograd graph."""
     key = (make, args, torch.device(device), dtype)
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.as_tensor(make(*args), dtype=dtype,
-                                           device=device)
+        with torch.inference_mode(False):
+            t = _CONSTS[key] = torch.as_tensor(make(*args), dtype=dtype,
+                                               device=device)
     return t

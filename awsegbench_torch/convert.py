@@ -1,4 +1,4 @@
-"""Flax ``EnsembleModel`` variables → the port's state dict.
+"""Flax ``EnsembleModel`` variables ↔ the port's state dict.
 
 The port names its submodules after the Flax scopes, so the map is
 mechanical: the scope path joined with '.' is the module path, and only
@@ -13,6 +13,8 @@ the leaf name and the layout change.
 
 Takes numpy arrays (no JAX needed): ``{'params': {...}, 'batch_stats':
 {...}}`` nested dicts as Flax returns them, after ``jax.device_get``.
+:func:`torch_to_flax` is the inverse, for a state dict or for the
+parameters' gradients, so tests compare the two leaf by leaf.
 """
 
 from __future__ import annotations
@@ -61,3 +63,28 @@ def flax_to_torch(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 raise ValueError(f'two variables map to {key}')
             sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return sd
+
+
+def torch_to_flax(tensors: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """Map state-dict entries (or gradients by parameter name) back to a
+    Flax-shaped ``{'params': ..., 'batch_stats': ...}`` tree of f32 numpy
+    arrays; raises on a name it does not know."""
+    inv = {v: k for k, v in _LEAF.items()}
+    tree: dict[str, Any] = {}
+    for key, value in tensors.items():
+        a = value.detach().float().cpu().numpy()
+        *scope, name = key.split('.')
+        if name == 'weight' and a.ndim in (2, 4):
+            collection, leaf = 'params', 'kernel'
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        elif name in ('weight', 'bias', 'running_mean', 'running_var'):
+            collection, leaf = inv[name]
+        elif not scope:
+            collection, leaf = 'params', name
+        else:
+            raise ValueError(f'unknown state-dict entry {key}')
+        node = tree.setdefault(collection, {})
+        for part in scope:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return tree

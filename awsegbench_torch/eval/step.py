@@ -2,7 +2,8 @@
 
 uint8 batch → ``prepare_batch`` (mixed-weather corruption + ImageNet
 normalisation) → ensemble forward in the working dtype →
-``cm += confusion_matrix_from_logits(...)`` and ``dsum += depth.sum()``.
+``cm += confusion_matrix_from_logits(...)`` and, for a model with depth
+heads, ``dsum += depth.sum()``.
 Everything stays on the device; nothing syncs with the host.
 """
 
@@ -18,7 +19,8 @@ from ..metrics.iou import confusion_matrix_from_logits
 
 class EvalStep:
     """Accumulates a confusion matrix ``cm`` [C, C] (int64) and the sum of
-    the ensemble depth ``dsum`` (float32) over the batches it is called on.
+    the ensemble depth ``dsum`` (float32; stays 0 for a model without
+    depth heads) over the batches it is called on.
     Puts ``model`` on ``device`` in ``dtype`` and in eval mode."""
 
     def __init__(self, model: nn.Module, num_classes: int = 19,
@@ -53,5 +55,6 @@ class EvalStep:
         out = self.model(prep['image'].to(self.dtype))
         self.cm += confusion_matrix_from_logits(out['segmentation'], labels,
                                                 self.num_classes)
-        self.dsum += out['depth'].float().sum()
+        if 'depth' in out:
+            self.dsum += out['depth'].float().sum()
         return out

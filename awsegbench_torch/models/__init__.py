@@ -1,4 +1,4 @@
-"""SegFormer-B0 + DeepLabV3+ (ResNet-50) ensemble, eval mode."""
+"""SegFormer-B0 + DeepLabV3+ (ResNet-50) ensemble."""
 
 from .ensemble import EnsembleModel
 from .factory import count_parameters, create_model

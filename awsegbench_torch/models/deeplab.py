@@ -1,11 +1,14 @@
 """DeepLabV3+ with a ResNet-50 encoder (counterpart of
-``awsegbench/models/deeplab.py``), eval mode.
+``awsegbench/models/deeplab.py``).
 
 ResNet-50 at output stride 16 (layer4 dilated; 8 and 32 also built), ASPP
 with separable atrous convs at rates 12/24/36 plus image pooling, a ×4
 decoder with a 48-channel low-level projection, a 1×1 classifier, and a
 depth head at output stride 16 upsampled to the input. All convs are
-library (cuDNN) convs, as they were XLA convs in the JAX package.
+library (cuDNN) convs, as they were XLA convs in the JAX package. Train mode
+(``model.train()``) gives every BN its batch statistics (``heads.BatchNorm``)
+and turns on ASPP's dropout (rate 0.5), whose keep mask is given or drawn
+from an explicit ``torch.Generator``.
 
 Parity notes: every conv pads symmetrically, ``d·(k−1)/2`` per side (the
 stride-2 3×3 convs of layer2/layer3 included, see ``heads.py``); the stem's
@@ -103,11 +106,12 @@ class SeparableConvBNReLU(nn.Module):
 
 class ASPP(nn.Module):
     """1×1 branch, three separable atrous branches, image pooling, 1×1
-    projection (dropout is the identity in eval)."""
+    projection, dropout (the identity in eval)."""
 
     def __init__(self, cin: int, features: int = 256,
-                 atrous_rates=(12, 24, 36)) -> None:
+                 atrous_rates=(12, 24, 36), dropout: float = 0.5) -> None:
         super().__init__()
+        self.dropout = dropout
         self.ConvBNReLU_0 = ConvBNReLU(cin, features, 1)
         for i, rate in enumerate(atrous_rates):
             self.add_module(f'SeparableConvBNReLU_{i}',
@@ -117,13 +121,28 @@ class ASPP(nn.Module):
         self.ConvBNReLU_2 = ConvBNReLU(features * (self.n_rates + 2),
                                        features, 1)               # project
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x NCHW. In train mode the dropout keeps where ``mask`` (bool,
+        NHWC like the JAX package's) is true, or where a uniform draw from
+        ``generator`` is below the keep rate (Flax's Bernoulli(keep))."""
         branches = [self.ConvBNReLU_0(x)]
         branches += [getattr(self, f'SeparableConvBNReLU_{i}')(x)
                      for i in range(self.n_rates)]
         pooled = self.ConvBNReLU_1(x.mean(dim=(2, 3), keepdim=True))
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
-        return self.ConvBNReLU_2(torch.cat(branches, dim=1))
+        y = self.ConvBNReLU_2(torch.cat(branches, dim=1))
+        if not self.training:
+            return y
+        keep = 1.0 - self.dropout
+        if mask is None:
+            if generator is None:
+                raise ValueError('ASPP: train mode needs a dropout mask or '
+                                 'a generator')
+            b, c, h, w = y.shape
+            mask = torch.rand((b, h, w, c), generator=generator,
+                              device=y.device) < keep
+        return torch.where(nhwc_to_nchw(mask), y / keep, 0.0)
 
 
 class DeepLabV3PlusModel(nn.Module):
@@ -148,11 +167,15 @@ class DeepLabV3PlusModel(nn.Module):
             self.DepthEstimationHead_0 = DepthEstimationHead(
                 high_c, hidden_channels=256)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, aspp_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
+        """x NHWC. In train mode ASPP's dropout takes ``aspp_mask`` [B, h,
+        w, 256] (bool) or draws from ``generator``."""
         h, w = x.shape[1], x.shape[2]
         feats = self.ResNetEncoder_0(nhwc_to_nchw(x))
         high, low = feats[-1], feats[2]          # os16 2048 ch, os4 256 ch
-        y = self.SeparableConvBNReLU_0(self.ASPP_0(high))
+        y = self.SeparableConvBNReLU_0(self.ASPP_0(high, aspp_mask, generator))
         y = nhwc_to_nchw(upsample_like(nchw_to_nhwc(y), low.shape[2:]))
         y = torch.cat([y, self.ConvBNReLU_0(low)], dim=1)
         y = self.Conv_0(self.SeparableConvBNReLU_1(y))

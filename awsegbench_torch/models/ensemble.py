@@ -1,5 +1,7 @@
 """SegFormer + DeepLabV3+ ensemble (counterpart of
-``awsegbench/models/ensemble.py``), eval mode.
+``awsegbench/models/ensemble.py``). Train mode (``model.train()``) is
+threaded to both members, with their dropout inputs; gradients reach the
+ensemble weights and the temperature through the mixing.
 
 Learnable 2-vector ensemble weights (softmaxed in the logits' dtype before
 mixing), per-pixel max-confidence selection or a plain average, a learnable
@@ -40,12 +42,17 @@ class EnsembleModel(nn.Module):
         if temperature_scaling:
             self.temperature = nn.Parameter(torch.ones(1))
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, seed: torch.Tensor | None = None,
+                aspp_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
         """x [B, H, W, 3] normalized → NHWC outputs: 'segmentation',
         'segformer_seg', 'deeplabv3plus_seg' and, with depth, 'depth',
-        'segformer_depth', 'deeplabv3plus_depth'."""
-        seg_out = self.segformer(x)
-        dlv_out = self.deeplabv3plus(x)
+        'segformer_depth', 'deeplabv3plus_depth'. Train mode needs the seg
+        head's dropout ``seed`` (int32 tensor) and ASPP's ``aspp_mask`` or a
+        ``generator`` to draw it."""
+        seg_out = self.segformer(x, seed)
+        dlv_out = self.deeplabv3plus(x, aspp_mask, generator)
         s1, s2 = seg_out['segmentation'], dlv_out['segmentation']
 
         if self.ensemble_strategy == 'weighted_average':

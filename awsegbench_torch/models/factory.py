@@ -2,7 +2,8 @@
 
 ``create_model`` builds 'segformer' | 'deeplabv3plus' | 'ensemble' from a
 plain dict (the model section of a config), initialises it from a seed and
-puts it on the device in eval mode. The init is the port's own: He-normal
+puts it on the device in eval mode (``TrainStep`` keeps its f32 parameters
+and switches it to train mode). The init is the port's own: He-normal
 convs over their fan-in, truncated-normal 0.02 dense layers, zero
 biases, identity norms, except the last BN of each ResNet residual branch,
 whose scale starts at 0.25 (as the common zero-init of that scale, but

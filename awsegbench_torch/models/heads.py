@@ -1,20 +1,31 @@
-"""Prediction heads, eval mode (counterpart of ``awsegbench/models/heads.py``).
+"""Prediction heads (counterpart of ``awsegbench/models/heads.py``).
 
 Submodules are named after the Flax scopes (``Conv_0``, ``BatchNorm_0``, …)
 so ``convert.flax_to_torch`` maps a Flax variable tree onto them name for
 name. Public tensors are NHWC like the JAX package; the library convs run
-on NCHW views.
+on NCHW views. Train mode is the module's ``training`` flag
+(``model.train()``), as the JAX modules take ``train=True``.
 
 Parity notes:
 
-* BN is eval mode with running statistics and eps 1e-5, computed as Flax
+* BN eval mode uses the running statistics with eps 1e-5, computed as Flax
   does: ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in the promoted
   dtype of x and the parameters. Its buffers are ``running_mean`` and
   ``running_var``; there is no ``num_batches_tracked``.
+* BN train mode is Flax ``nn.BatchNorm``'s: f32 batch statistics by the
+  fast variance ``E[x²] − E[x]²`` (clipped at 0), the normalisation in f32
+  and the result in the promoted dtype, and the running statistics
+  updated as ``0.9·old + 0.1·batch`` with the *biased* variance, where
+  ``old`` is taken in the parameters' dtype (the compute dtype under a bf16
+  policy, as the JAX step casts ``batch_stats``) and the result kept in
+  f32. Torch's ``F.batch_norm`` would update with the unbiased variance.
 * Padding is torch-style symmetric, ``d·(k−1)/2`` per side, for every
   ``ConvBNReLU`` (``heads.py:176-186`` in the JAX package pads that way on
   purpose: Flax ``'SAME'`` at stride 2 pads (0, 1) on even inputs). Stride-1
   ``'SAME'`` convs are the same symmetric padding.
+* The seg head's dropout (rate 0.1) is the counter-hash mask of
+  ``ops/headkernels_train.py`` on every path, drawn from an int32 seed;
+  the JAX package's unfused path uses Flax ``nn.Dropout`` there.
 """
 
 from __future__ import annotations
@@ -24,8 +35,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.headkernels import seg_head_fused
+from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
 from ..ops.upconv import upsample_conv3x3
 
+BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
@@ -43,11 +56,13 @@ def hwio(conv: nn.Conv2d) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over channel dim 1 (NCHW), Flax formula."""
+    """Batch norm over channel dim 1 (NCHW), Flax semantics in both modes."""
 
-    def __init__(self, c: int, eps: float = BN_EPS) -> None:
+    def __init__(self, c: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM) -> None:
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer('running_mean', torch.zeros(c))
@@ -55,9 +70,29 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            dims = (0,) + tuple(range(2, x.ndim))
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            self.set_stats(mean, var)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            return y.to(torch.result_type(x, self.weight))
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return ((x - self.running_mean.view(shape)) * mul.view(shape)
                 + self.bias.view(shape))
+
+    @torch.no_grad()
+    def set_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold f32 batch statistics into the running ones (Flax's update,
+        also ``BatchNormParams(set_stats=...)`` for the fused head)."""
+        m, cdt = self.momentum, self.weight.dtype
+        # JAX casts the Python momentum to the stats' dtype before the
+        # product (a weak-typed scalar); torch would multiply in f32
+        m_c = torch.tensor(m, dtype=cdt, device=self.weight.device)
+        for buf, new in ((self.running_mean, mean), (self.running_var, var)):
+            buf.copy_(buf.to(cdt) * m_c + (1.0 - m) * new.detach())
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
@@ -100,7 +135,12 @@ class DepthEstimationHead(nn.Module):
 
     def forward(self, features: torch.Tensor,
                 upsample_scale: int | None = None) -> torch.Tensor:
-        """features NHWC → depth NHWC [B, H', W', 1]."""
+        """features NHWC → depth NHWC [B, H', W', 1]. Eval mode only: the
+        train mode (and its fused kernels) is not ported yet."""
+        if self.training:
+            raise NotImplementedError(
+                'DepthEstimationHead: train mode is not ported yet; train '
+                'with include_depth=False')
         if upsample_scale is not None:
             x = nhwc_to_nchw(upsample_conv3x3(features, hwio(self.Conv_0),
                                               self.Conv_0.bias,
@@ -113,28 +153,52 @@ class DepthEstimationHead(nn.Module):
 
 
 class SegmentationHead(nn.Module):
-    """conv3×3 → BN → ReLU → (dropout: identity in eval) → conv1×1.
+    """conv3×3 → BN → ReLU → dropout(0.1) → conv1×1.
 
     With ``upsample_scale`` the whole head runs fused over the ×scale
-    upsample of the coarse input (``seg_head_fused``: the CUDA kernel on the
-    card, its plain version on the CPU)."""
+    upsample of the coarse input: ``seg_head_fused`` in eval mode (K2 on
+    the card), ``seg_head_fused_train`` in train mode (K7/K8 on the card),
+    plain versions on the CPU. Train mode needs the dropout ``seed``."""
 
     def __init__(self, cin: int, num_classes: int,
-                 hidden_channels: int = 256) -> None:
+                 hidden_channels: int = 256, dropout: float = 0.1) -> None:
         super().__init__()
         self.Conv_0 = conv(cin, hidden_channels, 3)
         self.BatchNorm_0 = BatchNorm(hidden_channels)
         self.Conv_1 = conv(hidden_channels, num_classes, 1)
+        self.dropout = dropout
 
     def forward(self, features: torch.Tensor,
-                upsample_scale: int | None = None) -> torch.Tensor:
-        """features NHWC → logits NHWC."""
+                upsample_scale: int | None = None,
+                seed: torch.Tensor | None = None) -> torch.Tensor:
+        """features NHWC → logits NHWC; ``seed`` is an int32 tensor."""
+        bn = self.BatchNorm_0
+        if not self.training:
+            if upsample_scale is not None:
+                return seg_head_fused(features, hwio(self.Conv_0),
+                                      self.Conv_0.bias, bn.weight, bn.bias,
+                                      bn.running_mean, bn.running_var, bn.eps,
+                                      hwio(self.Conv_1), self.Conv_1.bias,
+                                      scale=upsample_scale)
+            x = F.relu(bn(self.Conv_0(nhwc_to_nchw(features))))
+            return nchw_to_nhwc(self.Conv_1(x))
+        if seed is None:
+            raise ValueError('SegmentationHead: train mode needs the dropout '
+                             'seed')
+        if upsample_scale is not None and min(features.shape[1:3]) >= 2:
+            y, mean, var = seg_head_fused_train(
+                features, hwio(self.Conv_0), self.Conv_0.bias, bn.weight,
+                bn.bias, bn.eps, hwio(self.Conv_1), self.Conv_1.bias,
+                rate=self.dropout, seed=seed, scale=upsample_scale)
+            bn.set_stats(mean, var)
+            return y
         if upsample_scale is not None:
-            bn = self.BatchNorm_0
-            return seg_head_fused(features, hwio(self.Conv_0),
-                                  self.Conv_0.bias, bn.weight, bn.bias,
-                                  bn.running_mean, bn.running_var, bn.eps,
-                                  hwio(self.Conv_1), self.Conv_1.bias,
-                                  scale=upsample_scale)
-        x = F.relu(self.BatchNorm_0(self.Conv_0(nhwc_to_nchw(features))))
-        return nchw_to_nhwc(self.Conv_1(x))
+            x = nhwc_to_nchw(upsample_conv3x3(features, hwio(self.Conv_0),
+                                              self.Conv_0.bias,
+                                              scale=upsample_scale))
+        else:
+            x = self.Conv_0(nhwc_to_nchw(features))
+        x = nchw_to_nhwc(F.relu(bn(x)))
+        keep = dropout_keep_mask(x.shape, seed, self.dropout)
+        x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
+        return nchw_to_nhwc(self.Conv_1(nhwc_to_nchw(x)))

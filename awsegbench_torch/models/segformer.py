@@ -1,5 +1,6 @@
 """SegFormer: MiT encoder + faithful heads (counterpart of
-``awsegbench/models/segformer.py``), eval mode.
+``awsegbench/models/segformer.py``). Train mode (``model.train()``) reaches
+the heads only: MiT has no dropout and no batch norm.
 
 Submodules carry the Flax scope names (``MiTEncoder_0.SegFormerBlock_3.
 EfficientSelfAttention_0.Dense_0`` …) so the weight converter is
@@ -202,7 +203,10 @@ class SegFormerModel(nn.Module):
             self.DepthEstimationHead_0 = DepthEstimationHead(
                 c, hidden_channels=128)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                seed: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        """x NHWC; ``seed`` (int32 tensor) draws the seg head's dropout in
+        train mode."""
         h, w = x.shape[1], x.shape[2]
         feat = self.MiTEncoder_0(x)[-1]
         if self.head_mode == 'faithful':
@@ -216,12 +220,12 @@ class SegFormerModel(nn.Module):
                   else None)
             if up is None:
                 feat = upsample_like(feat, (h, w))
-            out = {'segmentation': self.SegmentationHead_0(feat, up)}
+            out = {'segmentation': self.SegmentationHead_0(feat, up, seed)}
             if self.include_depth:
                 out['depth'] = self.DepthEstimationHead_0(feat, up)
             return out
-        out = {'segmentation': upsample_like(self.SegmentationHead_0(feat),
-                                             (h, w))}
+        seg = self.SegmentationHead_0(feat, seed=seed)
+        out = {'segmentation': upsample_like(seg, (h, w))}
         if self.include_depth:
             out['depth'] = upsample_like(self.DepthEstimationHead_0(feat),
                                          (h, w))

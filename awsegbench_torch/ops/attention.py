@@ -1,12 +1,13 @@
 """Spatial-reduction attention core (counterpart of ``awsegbench/ops/attention.py``).
 
 ``sr_attention(q, k, v, scale) = softmax(q·kᵀ·scale)·v`` on ``[G, N, D]``
-queries and ``[G, M, D]`` reduced keys/values. On a CUDA tensor it launches
-the hand-written kernel ``csrc/sr_attention.cu`` (online softmax, K/V
-streamed through shared memory, D ∈ {32, 64}); on a CPU tensor it runs
-:func:`sr_attention_plain`, the einsum/softmax of the JAX package's
-``sr_attention_reference``. Forward only: the backward kernel comes with
-the train slice.
+queries and ``[G, M, D]`` reduced keys/values. On CUDA tensors it is a
+``torch.autograd.Function``: the forward launches ``csrc/sr_attention.cu``
+(online softmax, K/V streamed through shared memory, D ∈ {32, 64}) and the
+backward ``csrc/sr_attention_bwd.cu`` (P recomputed, dq per query row,
+dk/dv per key row over splits of the queries, summed in order). On CPU
+tensors it runs :func:`sr_attention_plain`, the einsum/softmax of the JAX
+package's ``sr_attention_reference``, and plain autograd through it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ import ctypes
 import torch
 
 from .. import _build
+
+# Query rows per split of the dk/dv kernel: N/1024 splits give the card
+# enough blocks at MiT stage 1 (G = 8, M = 512).
+_SPLIT_ROWS = 1024
 
 
 def sr_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,26 +32,26 @@ def sr_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum('gnm,gmd->gnd', p, v).to(q.dtype)
 
 
-def _launch(q, k, v, scale):
+def _check(q, k, v, what):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.float32, torch.bfloat16):
-        raise TypeError(f'sr_attention: q/k/v must share f32 or bf16, got '
+        raise TypeError(f'{what}: q/k/v must share f32 or bf16, got '
                         f'{q.dtype}, {k.dtype}, {v.dtype}')
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f'sr_attention: bad shapes q {tuple(q.shape)}, '
+        raise ValueError(f'{what}: bad shapes q {tuple(q.shape)}, '
                          f'k {tuple(k.shape)}, v {tuple(v.shape)}')
     if not (k.device == v.device == q.device):
-        raise ValueError('sr_attention: q, k, v on different devices')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError('sr_attention: the CUDA kernel is forward '
-                                  'only; its backward comes with the train '
-                                  'step')
+        raise ValueError(f'{what}: q, k, v on different devices')
+    if q.shape[2] not in (32, 64):
+        raise ValueError(f'{what}: the CUDA kernel takes head_dim 32 or 64, '
+                         f'got {q.shape[2]}')
+
+
+def _launch(q, k, v, scale):
+    _check(q, k, v, 'sr_attention')
     g, n, d = q.shape
     m = k.shape[1]
-    if d not in (32, 64):
-        raise ValueError(f'sr_attention: the CUDA kernel takes head_dim 32 '
-                         f'or 64, got {d}')
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if g * n == 0 or m == 0:
@@ -65,14 +70,89 @@ def _launch(q, k, v, scale):
     return out
 
 
+def sr_attention_backward_plain(q, k, v, dout, scale):
+    """Plain version of the backward kernel: autograd through
+    :func:`sr_attention_plain`. Returns (dq, dk, dv) in q/k/v's dtypes."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = sr_attention_plain(*qkv, scale)
+        return torch.autograd.grad(out, qkv, dout)
+
+
+def _launch_backward(q, k, v, dout, scale):
+    _check(q, k, v, 'sr_attention_backward')
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f'sr_attention_backward: dout {tuple(dout.shape)} '
+                         f'{dout.dtype} does not match q')
+    g, n, d = q.shape
+    m = k.shape[1]
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    dq = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.zeros((g, m, d), **f32)
+    dv = torch.zeros((g, m, d), **f32)
+    if g * n == 0 or m == 0:
+        return dq.zero_(), dk.to(k.dtype), dv.to(v.dtype)
+    splits = -(-n // _SPLIT_ROWS)
+    stats = torch.empty((3, g, n), **f32)
+    pk = torch.empty((splits, g, m, d), **f32)
+    pv = torch.empty((splits, g, m, d), **f32)
+    lib = _build.load('sr_attention_bwd')
+    lib.sr_attention_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.sr_attention_bwd_launch.restype = ctypes.c_int
+    rc = lib.sr_attention_bwd_launch(
+        *(_build.ptr(t) for t in (q, k, v, dout, dq, stats, pk, pv, dk, dv)),
+        g, n, m, d, int(q.dtype == torch.bfloat16), _SPLIT_ROWS, float(scale),
+        _build.stream_ptr(q))
+    _build.check(lib, rc, 'sr_attention_backward')
+    sr_attention_backward.launches += 1
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def sr_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          dout: torch.Tensor, scale: float):
+    """(dq, dk, dv) of :func:`sr_attention` for the output gradient
+    ``dout`` [G, N, D]; dq in q's dtype, dk/dv summed in f32 and returned
+    in k/v's dtype. CUDA tensors launch the kernel, CPU tensors take the
+    plain version."""
+    if q.is_cuda:
+        return _launch_backward(q, k, v, dout, scale)
+    return sr_attention_backward_plain(q, k, v, dout, scale)
+
+
+sr_attention_backward.launches = 0
+
+
+class _SRAttention(torch.autograd.Function):
+    """K1 forward, K6 backward; saves q, k, v (P is recomputed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = sr_attention_backward(q, k, v, dout.contiguous(),
+                                           ctx.scale)
+        return dq, dk, dv, None
+
+
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """``softmax(q·kᵀ·scale)·v``: q [G, N, D], k/v [G, M, D] → [G, N, D]
-    in q's dtype. CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
-    if q.is_cuda:
-        return _launch(q, k, v, scale)
-    return sr_attention_plain(q, k, v, scale)
+    in q's dtype. CUDA tensors launch the kernel (its backward kernel
+    under autograd), CPU tensors take the plain version."""
+    if not q.is_cuda:
+        return sr_attention_plain(q, k, v, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _SRAttention.apply(q, k, v, scale)
+    return _launch(q, k, v, scale)
 
 
 sr_attention.launches = 0

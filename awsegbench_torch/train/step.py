@@ -1,0 +1,79 @@
+"""The benchmark's train step (counterpart of ``bench.py``'s
+``build_train`` step, as ``eval/step.py::EvalStep`` is of its eval step).
+
+uint8 batch → ``prepare_batch(train=True)`` (mixed-weather corruption,
+flip and brightness/contrast, ImageNet normalisation) → per-pixel fog
+density → train-mode forward in the compute dtype (bf16 by default) →
+fog-density-aware loss → backward → global-norm clip → AdamW. Everything
+stays on the device; nothing syncs with the host.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..core.precision import get_policy
+from ..data.pipeline import prepare_batch
+from ..losses.fog_density import FogDensityAwareLoss
+from .optim import Optimizer, create_optimizer
+from .trainer import draw_dropout_seed, fog_density_from_weather, train_step
+
+# bench.py's optimiser: optax.chain(clip_by_global_norm(1.0), adamw(1e-3)),
+# whose default weight decay is 1e-4
+BENCH_OPTIMIZER = {'type': 'adamw', 'learning_rate': 1e-3,
+                   'weight_decay': 1e-4}
+
+
+class TrainStep:
+    """Puts ``model`` on ``device`` with f32 parameters in train mode and
+    steps it with ``FogDensityAwareLoss()``. ``optimizer`` defaults to
+    bench.py's (clip 1.0, AdamW lr 1e-3, decay 1e-4), ``precision`` to bf16
+    compute. Models with depth heads are not supported yet."""
+
+    def __init__(self, model: nn.Module, optimizer: Optimizer | None = None,
+                 precision: str = 'bf16',
+                 device: str | torch.device = 'cuda') -> None:
+        self.device = resolve_device(device)
+        if getattr(model, 'include_depth', False):
+            raise NotImplementedError('TrainStep: the depth heads\' train '
+                                      'mode is not ported yet; build the '
+                                      'model with include_depth=False')
+        self.policy = get_policy(precision)
+        self.model = model.to(device=self.device,
+                              dtype=self.policy.param_dtype).train()
+        self.optimizer = optimizer or create_optimizer(
+            self.model.parameters(), BENCH_OPTIMIZER, grad_clip=1.0)
+        self.loss_fn = FogDensityAwareLoss()
+
+    def __call__(self, images_u8: torch.Tensor, labels: torch.Tensor,
+                 weather_ids: torch.Tensor,
+                 generator: torch.Generator | None = None,
+                 draws: dict | None = None) -> dict[str, torch.Tensor]:
+        """One step on images [B, H, W, 3] uint8, labels [B, H, W] and
+        weather ids [B]. Every random draw comes from ``generator`` (on the
+        device) unless given in ``draws``: 'corruption' (as
+        ``draw_corruption``), 'augment' (as ``draw_augment``), 'fog_u'
+        [B, H, W], 'seed' (int32, the seg head's dropout) and 'aspp_mask'
+        [B, h/16, w/16, 256] bool. Returns the loss dict."""
+        dev = self.device
+        draws = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.to(dev))
+                 for k, v in (draws or {}).items()}
+        images_u8, labels = images_u8.to(dev), labels.to(dev)
+        weather_ids = weather_ids.to(dev)
+        _, h, w, _ = images_u8.shape
+        prep = prepare_batch(images_u8, labels, weather_ids,
+                             generator=generator,
+                             draws=draws.get('corruption'),
+                             include_depth=False, train=True,
+                             aug_draws=draws.get('augment'))
+        fog = fog_density_from_weather(weather_ids, h, w, generator,
+                                       draws.get('fog_u'))
+        seed = draws.get('seed')
+        if seed is None:
+            seed = draw_dropout_seed(generator, dev)
+        return train_step(self.model, self.optimizer, self.loss_fn,
+                          self.policy, prep['image'], {'label': prep['label']},
+                          fog, seed, draws.get('aspp_mask'), generator)

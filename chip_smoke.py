@@ -29,15 +29,39 @@ Phases, each printing one JSON line:
    the card (through the kernels) against the same on the CPU (where every
    wrapper takes its plain version): uint8 images within one step with
    99.9% exact, logits within 2e-3.
+5. train kernels: K6 (the attention backward, through ``autograd.grad``
+   of the K1/K6 Function), K7 and K8 (the train seg head's core, K8 also
+   through the Function's backward) against their plain versions on the
+   card at the train path's shapes and at ragged shapes off it, timed
+   beside their plain versions, their bounds and, for K6, the backward of
+   ``F.scaled_dot_product_attention`` (a yardstick only).
+6. train path: ``TrainStep`` on the faithful ensemble without depth heads
+   at 512×1024, bf16 compute, batch 8, mixed weather 0–4, clip 1.0 and
+   AdamW(1e-3, decay 1e-4): 2 warm-up and 5 timed steps; images/s, peak
+   memory, the launches of K1, K3, K6, K7 and K8 in that run (each must be
+   > 0); the loss must be finite and the parameters and BN running stats
+   must move. Then each layer's forward+backward timed alone and device
+   time by kernel over one profiled step.
+7. train parity: one f32 step at 128×256, batch 2, with the same draws
+   (made on the CPU) on the card (kernels) and on the CPU (plain versions):
+   loss within 1e-4 relative, BN running stats within 1e-4, the gradients
+   of the SegFormer member and the ensemble's own parameters within rtol
+   2e-3 and 2e-3 of each leaf's largest value. The DeepLab member has only
+   library convs; in f32 its gradients are ill-conditioned at batch 2
+   (tests/test_torch_train_step.py), so each of its leaves is held within
+   0.1 relative L2 error.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary and the card's ``nvidia-smi`` name and power
-limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
+``{"kernels": [...]}`` summary (each kernel's ``launches`` from the path
+it serves: K1–K3 from the eval path, K6–K8 from the train path, both
+paths' counts under ``launches_by_path``) and the card's ``nvidia-smi``
+name and power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +73,7 @@ H, W, B = 512, 1024, 8
 BF16_PEAK, F32_PEAK, HBM_BW = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 MODEL_CFG = {'type': 'ensemble', 'num_classes': 19, 'include_depth': True,
              'head_mode': 'faithful'}
+TRAIN_CFG = dict(MODEL_CFG, include_depth=False)
 
 
 def emit(obj) -> None:
@@ -95,6 +120,17 @@ def check_close(name, got, want, tol, atol=None):
         raise AssertionError(f'{name}: kernel and plain version differ, max '
                              f'abs err {max_err(got, want)} (rtol {tol}, '
                              f'atol {atol})')
+
+
+def check_scaled(name, got, want, tol):
+    """|got − want| ≤ tol · max|want| (for gradients, whose scale the
+    shapes set)."""
+    scale = want.float().abs().max().item()
+    err = max_err(got, want)
+    if not err <= tol * scale:
+        raise AssertionError(f'{name}: kernel and plain version differ, max '
+                             f'abs err {err} > {tol} × scale {scale}')
+    return err / scale if scale else 0.0
 
 
 def phase_kernels(dev):
@@ -307,8 +343,6 @@ def phase_layers(step, batch, g):
     events, and device time by kernel over one whole step (torch.profiler)
     with the device's busy share of that step's wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from awsegbench_torch.data.pipeline import prepare_batch
     from awsegbench_torch.metrics.iou import confusion_matrix_from_logits
 
@@ -327,25 +361,9 @@ def phase_layers(step, batch, g):
                 seg, labels, 19)}
         layer_ms = {k: time_ms(fn, reps=5, warmup=1)
                     for k, fn in layers.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*batch, generator=g)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_kernel.setdefault(e.name[:100], [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
-    busy_ms = sum(ms for ms, _ in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
     emit({'phase': 'layers', 'batch': B, 'dtype': str(step.dtype),
-          'layer_ms': layer_ms, 'profiled_step_wall_ms': wall_ms,
-          'device_busy_ms': busy_ms, 'device_busy_share': busy_ms / wall_ms,
-          'top_kernels_ms_count': [[k, ms, n] for k, (ms, n) in top]})
+          'layer_ms': layer_ms,
+          **profile_step(lambda: step(*batch, generator=g))})
 
 
 def phase_parity(dev):
@@ -396,6 +414,397 @@ def phase_parity(dev):
             raise AssertionError(f'{k}: card and plain path differ by {errs[k]}')
 
 
+def phase_train_kernels(dev):
+    """K6–K8 against their plain versions; returns the kernels' records."""
+    import torch
+    import torch.nn.functional as F
+    from awsegbench_torch.ops import attention
+    from awsegbench_torch.ops import headkernels_train as ht
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    recs = {}
+
+    # K6 through autograd.grad of the K1/K6 Function, against plain
+    # autograd; f32 at the JAX test's rtol 2e-4 / atol 2e-5, bf16 within
+    # 6e-2 of each gradient's scale (the two round P, dS and dP to bf16 at
+    # different points).
+    def k6_grads(fn, q, k, v, do, s):
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*qkv, s), qkv, do)
+
+    def check_k6(gg, n, mm, dd, dtypes=(torch.float32, torch.bfloat16)):
+        q32, k32, v32, do32 = (randn(gg, n, dd), randn(gg, mm, dd),
+                               randn(gg, mm, dd), randn(gg, n, dd))
+        errs = {}
+        for dt in dtypes:
+            args = [t.to(dt) for t in (q32, k32, v32, do32)] + [dd ** -0.5]
+            got = k6_grads(attention.sr_attention, *args)
+            want = k6_grads(attention.sr_attention_plain, *args)
+            torch.cuda.synchronize()
+            rel = 0.0
+            for name, a, b in zip('qkv', got, want):
+                tag = f'sr_attention_backward {dt} d{name} {gg}x{n}x{mm}x{dd}'
+                if dt == torch.float32:
+                    check_close(tag, a, b, 2e-4, 2e-5)
+                    rel = max(rel, max_err(a, b))
+                else:
+                    rel = max(rel, check_scaled(tag, a, b, 6e-2))
+            errs[dt] = rel
+        return errs
+
+    stages = [(B * heads, (H >> (i + 2)) * (W >> (i + 2)))
+              for i, heads in enumerate((1, 2, 5, 8))]
+    m, d = H * W // 1024, 32
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    ms = plain_ms = lib_ms = bound_ms = flops_all = bytes_all = 0.0
+    for gg, n in stages:
+        e = check_k6(gg, n, m, d, (torch.bfloat16,) if gg * n > 2 ** 20
+                     else (torch.float32, torch.bfloat16))
+        errs = {dt: max(errs[dt], e.get(dt, 0.0)) for dt in errs}
+        q, k, v, do = (randn(gg, n, d).bfloat16(), randn(gg, m, d).bfloat16(),
+                       randn(gg, m, d).bfloat16(), randn(gg, n, d).bfloat16())
+        s = d ** -0.5
+        ms += 2 * time_ms(lambda: attention.sr_attention_backward(q, k, v, do, s))
+        qkv = [t.requires_grad_() for t in (q.clone(), k.clone(), v.clone())]
+        plain_ms += 2 * (time_ms(lambda: torch.autograd.grad(
+            attention.sr_attention_plain(*qkv, s), qkv, do), reps=5)
+            - time_ms(lambda: attention.sr_attention_plain(*qkv, s), reps=5))
+        q4, k4, v4 = (t[None].detach().requires_grad_() for t in qkv)
+        lib_ms += 2 * (time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4, scale=s), (q4, k4, v4),
+            do[None])) - time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=s)))
+        flops, nbytes = 10.0 * gg * n * m * d, 2.0 * (3 * gg * n * d + 4 * gg * m * d)
+        bound_ms += 2 * bound(flops, nbytes, BF16_PEAK)[0]
+        flops_all += 2 * flops
+        bytes_all += 2 * nbytes
+    # off the main path: head_dim 64, ragged tiles, N over one split
+    for shape in ((3, 130, 70, 64), (2, 100, 33, 32), (2, 2500, 40, 32)):
+        e = check_k6(*shape)
+        errs = {dt: max(errs[dt], e[dt]) for dt in errs}
+    recs['sr_attention_backward'] = dict(
+        name='sr_attention_backward', route='cuda',
+        source='awsegbench_torch/csrc/sr_attention_bwd.cu',
+        replaces='awsegbench/ops/attention.py:88',
+        max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound(flops_all, bytes_all, BF16_PEAK)[1],
+        library_ms=lib_ms, max_abs_err_f32=errs[torch.float32],
+        err_bf16_is='relative to each gradient\'s scale',
+        gflop=flops_all / 1e9)
+
+    # K7 / K8: the train seg head core at f [b, H/32, W/32, 256]
+    h, w, c, nc, r, rate = H // 32, W // 32, 256, 19, 32, 0.1
+    seed = torch.tensor(-123456789, dtype=torch.int32, device=dev)
+
+    def core_inputs(shape, dt):
+        cc = shape[-1]
+        return (randn(*shape).mul(0.5).to(dt), 1.0 + 0.1 * randn(cc),
+                0.1 * randn(cc), (randn(cc, nc) / 16).to(dt), 0.1 * randn(nc))
+
+    def check_k7(shape, rr, dt, tol):
+        args = core_inputs(shape, dt)
+        got = ht.seg_core_train(*args, seed, rate, rr)
+        want = ht.seg_core_train_plain(*args, seed, rate, rr)
+        torch.cuda.synchronize()
+        b_, h_, w_ = shape[:3]
+        if got.shape != (b_, h_ * rr, w_ * rr, nc):
+            raise AssertionError(f'seg_core_train shape {tuple(got.shape)}')
+        check_close(f'seg_core_train {dt} {shape} r{rr}', got, want, tol)
+        return args, max_err(got, want)
+
+    # K8 through the Function's backward (dP incl. the plain scatter, da1,
+    # dc1, dwp, dbp) against plain autograd: f32 at rtol 2e-3 of each
+    # gradient's scale; bf16 within 6e-2 of it (the plain version rounds
+    # dv and dfine to bf16 where autograd casts, K8 keeps them f32 until the
+    # TPU kernel's own roundings).
+    def check_k8(args, rr, dt, tol):
+        b_, h_, w_ = args[0].shape[:3]
+        dy = randn(b_, h_ * rr, w_ * rr, nc).mul(0.1).to(dt)
+        ins = [t.detach().requires_grad_() for t in args]
+        got = torch.autograd.grad(ht.seg_core_train(*ins, seed, rate, rr),
+                                  ins, dy)
+        ins2 = [t.detach().requires_grad_() for t in args]
+        want = torch.autograd.grad(ht.seg_core_train_plain(*ins2, seed, rate,
+                                                           rr), ins2, dy)
+        torch.cuda.synchronize()
+        return max(check_scaled(f'seg_core_train grad {name} {dt} '
+                                f'{tuple(args[0].shape)} r{rr}', a, b, tol)
+                   for name, a, b in zip(('P', 'a1', 'c1', 'wp', 'bp'),
+                                         got, want))
+
+    errs7, errs8 = {}, {}
+    for dt, tol7, tol8 in ((torch.float32, 1e-4, 2e-3),
+                           (torch.bfloat16, 6e-2, 6e-2)):
+        args, errs7[dt] = check_k7((2, h, w, 9, c), r, dt, tol7)
+        errs8[dt] = check_k8(args, r, dt, tol8)
+    for shape, rr in (((1, 3, 5, 9, 32), 32), ((2, 2, 3, 9, 48), 8)):
+        args, _ = check_k7(shape, rr, torch.float32, 1e-4)
+        check_k8(args, rr, torch.float32, 2e-3)
+    args, e = check_k7((B, h, w, 9, c), r, torch.bfloat16, 6e-2)   # batch 8
+    errs7[torch.bfloat16] = max(errs7[torch.bfloat16], e)
+    dy = (randn(B, h * r, w * r, nc) * 0.1).bfloat16()
+    got = ht.seg_core_train_backward(*args, seed, dy, rate, r)
+    want = ht.seg_core_train_backward_plain(*args, seed, dy, rate, r)
+    torch.cuda.synchronize()
+    errs8[torch.bfloat16] = max(errs8[torch.bfloat16], *(
+        check_scaled(f'seg_core_train_backward {name} bf16 b8', a, b, 6e-2)
+        for name, a, b in zip(('dpp', 'da1', 'dc1', 'dwp', 'dbp'), got, want)))
+    del got, want
+
+    pix = B * h * r * w * r
+    flops7 = pix * (2 * 9 * 9 * c / r + 2 * 9 * c + 2 * c * nc)
+    p_bytes = args[0].numel() * 2
+    bms, by = bound(flops7, p_bytes + c * nc * 2 + pix * nc * 2, BF16_PEAK)
+    recs['seg_core_train'] = dict(
+        name='seg_core_train', route='cuda',
+        source='awsegbench_torch/csrc/seg_head_train.cu',
+        replaces='awsegbench/ops/headkernels_train.py:317',
+        max_abs_err=errs7[torch.bfloat16],
+        ms=time_ms(lambda: ht.seg_core_train(*args, seed, rate, r)),
+        plain_ms=time_ms(lambda: ht.seg_core_train_plain(*args, seed, rate, r),
+                         reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err_f32=errs7[torch.float32], gflop=flops7 / 1e9)
+    bms, by = bound(2 * flops7, p_bytes + pix * nc * 2 + 9 * p_bytes
+                    + (2 * c + c * nc + nc) * 4, BF16_PEAK)
+    recs['seg_core_train_backward'] = dict(
+        name='seg_core_train_backward', route='cuda',
+        source='awsegbench_torch/csrc/seg_head_train.cu',
+        replaces='awsegbench/ops/headkernels_train.py:349',
+        max_abs_err=errs8[torch.bfloat16],
+        ms=time_ms(lambda: ht.seg_core_train_backward(*args, seed, dy, rate,
+                                                      r)),
+        plain_ms=time_ms(lambda: ht.seg_core_train_backward_plain(
+            *args, seed, dy, rate, r), reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err_f32=errs8[torch.float32],
+        err_is='relative to each gradient\'s scale', gflop=2 * flops7 / 1e9)
+    del args, dy
+    torch.cuda.empty_cache()
+    return recs
+
+
+TRAIN_COUNTERS = ('sr_attention', 'splat_coverage_batched',
+                  'sr_attention_backward', 'seg_core_train',
+                  'seg_core_train_backward')
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by name."""
+    from awsegbench_torch.ops import attention, headkernels, splat
+    from awsegbench_torch.ops import headkernels_train as ht
+    return {fn.__name__: fn for fn in (
+        attention.sr_attention, headkernels.seg_core,
+        splat.splat_coverage_batched, attention.sr_attention_backward,
+        ht.seg_core_train, ht.seg_core_train_backward)}
+
+
+def phase_train_path(dev):
+    import torch
+    from awsegbench_torch.models import count_parameters, create_model
+    from awsegbench_torch.train.step import TrainStep
+
+    model = create_model(TRAIN_CFG, device=dev, seed=0)
+    step = TrainStep(model, device=dev)             # bf16, bench.py's AdamW
+    g = torch.Generator(device=dev).manual_seed(4)
+    batches = []
+    for i in range(7):
+        images = torch.randint(0, 256, (B, H, W, 3), generator=g, device=dev,
+                               dtype=torch.uint8)
+        labels = torch.randint(0, 19, (B, H, W), generator=g, device=dev)
+        labels[:, :16] = 255                               # ignored rows
+        batches.append((images, labels, (torch.arange(B, device=dev) + i) % 5))
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats0 = [b.clone() for b in model.buffers()]
+    fns = counters()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(*batch, generator=g)['total_loss'] for batch in batches[:2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(*batch, generator=g)['total_loss']
+               for batch in batches[2:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    if min(launches[k] for k in TRAIN_COUNTERS) <= 0:
+        raise AssertionError(f'a kernel of the train path never launched: '
+                             f'{launches}')
+    losses = [float(x) for x in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f'train loss not finite: {losses}')
+    # every parameter moves but the fused seg head's conv bias: its
+    # gradient is zero by construction and it starts at zero, so the decay
+    # leaves it there
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p, params0[n])]
+    stats_moved = sum(not torch.equal(b, b0) for b, b0 in zip(model.buffers(),
+                                                              stats0))
+    if still != ['segformer.SegmentationHead_0.Conv_0.bias'] \
+            or stats_moved != len(stats0):
+        raise AssertionError(f'parameters that did not move: {still}; '
+                             f'{stats_moved}/{len(stats0)} BN stats moved')
+    emit({'phase': 'train_path', 'images_per_s': 5 * B / dt,
+          'step_ms': dt / 5 * 1e3, 'batch': B, 'hw': [H, W],
+          'compute_dtype': 'bfloat16', 'params': count_parameters(model),
+          'launches': launches, 'losses': losses,
+          'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30})
+    phase_train_layers(step, batches[0], g)
+    del step, model, params0, stats0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(run):
+    """Device time by kernel over one call of ``run`` (torch.profiler) and
+    the device's busy share of its wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_kernel.setdefault(e.name[:100], [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    return {'profiled_step_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+            'device_busy_share': busy_ms / wall_ms,
+            'top_kernels_ms_count': [[k, ms, n] for k, (ms, n) in top]}
+
+
+def phase_train_layers(step, batch, g):
+    """Where a train step's time goes: each layer timed alone by CUDA
+    events (the members forward + backward of their summed logits), and
+    device time by kernel over one whole step."""
+    import torch
+    from torch.func import functional_call
+    from awsegbench_torch.data.pipeline import prepare_batch
+    from awsegbench_torch.train.trainer import (draw_dropout_seed,
+                                                fog_density_from_weather)
+
+    images, labels, wids = batch
+    model, policy = step.model, step.policy
+    dev = images.device
+    prep = prepare_batch(images, labels, wids, generator=g,
+                         include_depth=False, train=True)
+    x = prep['image'].to(policy.compute_dtype)
+    seed = draw_dropout_seed(g, dev)
+
+    def member_fwd_bwd(member, kwargs):
+        out = functional_call(member, policy.cast_to_compute(member), (x,),
+                              kwargs)
+        out['segmentation'].float().sum().backward()
+
+    with torch.no_grad():
+        out = functional_call(model, policy.cast_to_compute(model), (x,),
+                              {'seed': seed, 'generator': g})
+    out = {k: v.float() for k, v in out.items()}
+    fog = fog_density_from_weather(wids, H, W, g)
+    layers = {
+        'prepare_batch_train': lambda: prepare_batch(
+            images, labels, wids, generator=g, include_depth=False,
+            train=True),
+        'segformer_b0_fwd_bwd': lambda: member_fwd_bwd(
+            model.segformer, {'seed': seed}),
+        'deeplabv3plus_r50_fwd_bwd': lambda: member_fwd_bwd(
+            model.deeplabv3plus, {'generator': g}),
+        'loss': lambda: step.loss_fn(out, {'label': prep['label']}, fog),
+        'clip_adamw': step.optimizer.step}
+    layer_ms = {k: time_ms(fn, reps=3, warmup=1) for k, fn in layers.items()}
+    emit({'phase': 'train_layers', 'batch': B, 'layer_ms': layer_ms,
+          **profile_step(lambda: step(*batch, generator=g))})
+
+
+def phase_train_parity(dev):
+    """One f32 step at 128×256, batch 2, with the same draws on the card
+    (kernels) and on the CPU (plain versions)."""
+    import torch
+    from awsegbench_torch.data.pipeline import draw_augment
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.optim import create_optimizer
+    from awsegbench_torch.train.step import TrainStep
+    from awsegbench_torch.weather.corruption import draw_corruption
+
+    h, w, b = 128, 256, 2
+    g = torch.Generator().manual_seed(5)
+    images = torch.randint(0, 256, (b, h, w, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 19, (b, h, w), generator=g)
+    labels[:, :4] = 255
+    wids = torch.tensor([1, 3])
+    draws = {'corruption': draw_corruption(wids, h, w, g),
+             'augment': draw_augment(b, g, torch.device('cpu')),
+             'fog_u': torch.rand((b, h, w), generator=g),
+             'seed': torch.tensor(987654321, dtype=torch.int32),
+             'aspp_mask': torch.rand((b, h // 16, w // 16, 256),
+                                     generator=g) < 0.5}
+    state = create_model(TRAIN_CFG, device='cpu', seed=0).state_dict()
+    sgd0 = {'type': 'sgd', 'learning_rate': 0.0, 'momentum': 0.0,
+            'weight_decay': 0.0}
+    res = {}
+    for where in (dev, torch.device('cpu')):
+        model = create_model(TRAIN_CFG, device=where, seed=0)
+        model.load_state_dict(state)
+        step = TrainStep(model, create_optimizer(model.parameters(), sgd0,
+                                                 grad_clip=0.0),
+                         precision='fp32', device=where)
+        t0 = time.perf_counter()
+        loss = float(step(images, labels, wids, draws=draws)['total_loss'])
+        res[where.type] = (loss, {n: (torch.zeros_like(p) if p.grad is None
+                                      else p.grad).cpu()
+                                  for n, p in model.named_parameters()},
+                           {n: t.cpu() for n, t in model.named_buffers()},
+                           time.perf_counter() - t0)
+        del step, model
+    (lg, gg, sg, _), (lc, gc, sc, cpu_s) = res['cuda'], res['cpu']
+    if not abs(lg - lc) <= 1e-4 * abs(lc):
+        raise AssertionError(f'train loss: card {lg}, CPU {lc}')
+    top = max(t.abs().max().item() for t in gc.values())
+    held = dl_rel = 0.0
+    for name, want in gc.items():
+        got, scale = gg[name], want.abs().max().item()
+        if scale < 1e-6 * top:           # analytically zero leaves
+            if got.abs().max().item() >= 1e-6 * top:
+                raise AssertionError(f'{name}: card grad not negligible')
+            continue
+        if name.startswith('deeplabv3plus.'):
+            # library convs only; ill-conditioned in f32 at batch 2, so held
+            # on the leaf's relative L2 error
+            dl_rel = max(dl_rel, ((got - want).norm() / want.norm()).item())
+            continue
+        rel = ((got - want).abs() - 2e-3 * want.abs()).max().item() / scale
+        held = max(held, rel)
+        if rel > 2e-3:
+            raise AssertionError(f'{name}: card and CPU gradients differ by '
+                                 f'{rel} of the leaf scale')
+    if dl_rel > 0.1:
+        raise AssertionError(f'DeepLab member: card and CPU gradients differ '
+                             f'by {dl_rel} (relative L2 of a leaf)')
+    stat_err = max(max_err(sg[n], sc[n]) / max(sc[n].abs().max().item(), 1.0)
+                   for n in sc)
+    if not stat_err <= 1e-4:
+        raise AssertionError(f'BN running stats: card and CPU differ by '
+                             f'{stat_err}')
+    emit({'phase': 'train_parity', 'batch': b, 'hw': [h, w],
+          'dtype': 'float32', 'loss_card': lg, 'loss_cpu': lc,
+          'grad_excess_over_rtol_per_leaf_scale': held,
+          'deeplab_grad_max_rel_l2': dl_rel,
+          'bn_stats_max_err': stat_err, 'cpu_seconds': cpu_s})
+
+
 def main() -> int:
     try:
         import torch
@@ -429,13 +838,25 @@ def main() -> int:
 
     recs = phase_kernels(dev)
     emit({'phase': 'kernels', 'kernels': list(recs.values())})
-    launches = phase_main_path(dev)
+    eval_launches = phase_main_path(dev)
     phase_parity(dev)
+    train_recs = phase_train_kernels(dev)
+    emit({'phase': 'train_kernels', 'kernels': list(train_recs.values())})
+    train_launches = phase_train_path(dev)
+    phase_train_parity(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    emit({'kernels': [{k: dict(rec, launches=launches[name]).get(k)
-                       for k in keys} for name, rec in recs.items()]})
+    by_path = {name: {'eval': eval_launches.get(name, 0),
+                      'train': train_launches[name]}
+               for name in train_launches}
+    summary = [dict({k: dict(rec, launches=eval_launches[name]).get(k)
+                     for k in keys}, launches_by_path=by_path[name])
+               for name, rec in recs.items()]
+    summary += [dict({k: dict(rec, launches=train_launches[name]).get(k)
+                      for k in keys}, launches_by_path=by_path[name])
+                for name, rec in train_recs.items()]
+    emit({'kernels': summary})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
