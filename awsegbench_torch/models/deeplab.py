@@ -168,10 +168,12 @@ class DeepLabV3PlusModel(nn.Module):
                 high_c, hidden_channels=256)
 
     def forward(self, x: torch.Tensor, aspp_mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None
+                generator: torch.Generator | None = None,
+                depth_seed: torch.Tensor | None = None
                 ) -> dict[str, torch.Tensor]:
         """x NHWC. In train mode ASPP's dropout takes ``aspp_mask`` [B, h,
-        w, 256] (bool) or draws from ``generator``."""
+        w, 256] (bool) or draws from ``generator``, and the depth head's
+        takes the hash mask of ``depth_seed`` (an int32 tensor)."""
         h, w = x.shape[1], x.shape[2]
         feats = self.ResNetEncoder_0(nhwc_to_nchw(x))
         high, low = feats[-1], feats[2]          # os16 2048 ch, os4 256 ch
@@ -183,6 +185,7 @@ class DeepLabV3PlusModel(nn.Module):
         if self.include_depth:
             # encoder features shared with the seg path (the reference
             # re-runs the encoder; same numbers)
-            depth = self.DepthEstimationHead_0(nchw_to_nhwc(high))
+            depth = self.DepthEstimationHead_0(nchw_to_nhwc(high),
+                                               seed=depth_seed)
             out['depth'] = upsample_like(depth, (h, w))
         return out

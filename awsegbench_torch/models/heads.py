@@ -23,9 +23,9 @@ Parity notes:
   ``ConvBNReLU`` (``heads.py:176-186`` in the JAX package pads that way on
   purpose: Flax ``'SAME'`` at stride 2 pads (0, 1) on even inputs). Stride-1
   ``'SAME'`` convs are the same symmetric padding.
-* The seg head's dropout (rate 0.1) is the counter-hash mask of
-  ``ops/headkernels_train.py`` on every path, drawn from an int32 seed;
-  the JAX package's unfused path uses Flax ``nn.Dropout`` there.
+* The heads' dropout (rate 0.1) is the counter-hash mask of
+  ``ops/headkernels_train.py`` on every path, drawn from an int32 seed per
+  head; the JAX package's unfused paths use Flax ``nn.Dropout`` there.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.depthkernels_train import depth_stage1_fused_train
 from ..ops.headkernels import seg_head_fused
 from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
 from ..ops.upconv import upsample_conv3x3
@@ -95,6 +96,14 @@ class BatchNorm(nn.Module):
             buf.copy_(buf.to(cdt) * m_c + (1.0 - m) * new.detach())
 
 
+def hash_dropout(x: torch.Tensor, seed: torch.Tensor,
+                 rate: float) -> torch.Tensor:
+    """Dropout of an NCHW tensor by the counter-hash mask of ``seed`` over
+    its NHWC positions (the fused kernels' mask)."""
+    keep = dropout_keep_mask(nchw_to_nhwc(x).shape, seed, rate)
+    return torch.where(nhwc_to_nchw(keep), x / (1.0 - rate), 0.0)
+
+
 def conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
          groups: int = 1, bias: bool = True) -> nn.Conv2d:
     """Conv2d with symmetric padding d·(k−1)/2 per side."""
@@ -117,14 +126,19 @@ class ConvBNReLU(nn.Module):
 
 
 class DepthEstimationHead(nn.Module):
-    """conv3×3 → BN → ReLU → conv3×3 → BN → ReLU → conv1×1 → sigmoid.
+    """conv3×3 → BN → ReLU → dropout(0.1) → conv3×3 → BN → ReLU → conv1×1 →
+    sigmoid.
 
     With ``upsample_scale``, the input is the coarse field and the first
-    conv is fused with the ×scale bilinear upsample (``upsample_conv3x3``);
-    the rest are library convs at full resolution."""
+    conv is fused with the ×scale bilinear upsample: ``upsample_conv3x3`` in
+    eval mode; in train mode (scale ≥ 4, features at least 2×2) stage 1
+    runs as ``depth_stage1_fused_train`` (K9/K10 on the card), then BN2,
+    ReLU, the 1×1 and the sigmoid in plain torch. Without it every conv is a
+    library conv. Train mode needs the dropout ``seed``; the dropout (the
+    identity in eval) is the counter-hash mask on every path."""
 
     def __init__(self, cin: int, hidden_channels: int = 256,
-                 out_channels: int = 1) -> None:
+                 out_channels: int = 1, dropout: float = 0.1) -> None:
         super().__init__()
         c1, c2 = hidden_channels, hidden_channels // 2
         self.Conv_0 = conv(cin, c1, 3)
@@ -132,23 +146,37 @@ class DepthEstimationHead(nn.Module):
         self.Conv_1 = conv(c1, c2, 3)
         self.BatchNorm_1 = BatchNorm(c2)
         self.Conv_2 = conv(c2, out_channels, 1)
+        self.dropout = dropout
 
     def forward(self, features: torch.Tensor,
-                upsample_scale: int | None = None) -> torch.Tensor:
-        """features NHWC → depth NHWC [B, H', W', 1]. Eval mode only: the
-        train mode (and its fused kernels) is not ported yet."""
-        if self.training:
-            raise NotImplementedError(
-                'DepthEstimationHead: train mode is not ported yet; train '
-                'with include_depth=False')
-        if upsample_scale is not None:
-            x = nhwc_to_nchw(upsample_conv3x3(features, hwio(self.Conv_0),
-                                              self.Conv_0.bias,
-                                              scale=upsample_scale))
+                upsample_scale: int | None = None,
+                seed: torch.Tensor | None = None) -> torch.Tensor:
+        """features NHWC → depth NHWC [B, H', W', 1]; ``seed`` is an int32
+        tensor."""
+        bn0 = self.BatchNorm_0
+        if self.training and seed is None:
+            raise ValueError('DepthEstimationHead: train mode needs the '
+                             'dropout seed')
+        if (self.training and upsample_scale is not None
+                and upsample_scale >= 4 and min(features.shape[1:3]) >= 2):
+            h2, mean, var = depth_stage1_fused_train(
+                features, hwio(self.Conv_0), self.Conv_0.bias, bn0.weight,
+                bn0.bias, bn0.eps, hwio(self.Conv_1), rate=self.dropout,
+                seed=seed, scale=upsample_scale)
+            bn0.set_stats(mean, var)
+            x = nhwc_to_nchw(h2 + self.Conv_1.bias.to(h2.dtype))
         else:
-            x = self.Conv_0(nhwc_to_nchw(features))
-        x = F.relu(self.BatchNorm_0(x))
-        x = F.relu(self.BatchNorm_1(self.Conv_1(x)))
+            if upsample_scale is not None:
+                x = nhwc_to_nchw(upsample_conv3x3(features, hwio(self.Conv_0),
+                                                  self.Conv_0.bias,
+                                                  scale=upsample_scale))
+            else:
+                x = self.Conv_0(nhwc_to_nchw(features))
+            x = F.relu(bn0(x))
+            if self.training:
+                x = hash_dropout(x, seed, self.dropout)
+            x = self.Conv_1(x)
+        x = F.relu(self.BatchNorm_1(x))
         return nchw_to_nhwc(torch.sigmoid(self.Conv_2(x)))
 
 
@@ -198,7 +226,5 @@ class SegmentationHead(nn.Module):
                                               scale=upsample_scale))
         else:
             x = self.Conv_0(nhwc_to_nchw(features))
-        x = nchw_to_nhwc(F.relu(bn(x)))
-        keep = dropout_keep_mask(x.shape, seed, self.dropout)
-        x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
-        return nchw_to_nhwc(self.Conv_1(nhwc_to_nchw(x)))
+        x = hash_dropout(F.relu(bn(x)), seed, self.dropout)
+        return nchw_to_nhwc(self.Conv_1(x))

@@ -203,10 +203,11 @@ class SegFormerModel(nn.Module):
             self.DepthEstimationHead_0 = DepthEstimationHead(
                 c, hidden_channels=128)
 
-    def forward(self, x: torch.Tensor,
-                seed: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        """x NHWC; ``seed`` (int32 tensor) draws the seg head's dropout in
-        train mode."""
+    def forward(self, x: torch.Tensor, seed: torch.Tensor | None = None,
+                depth_seed: torch.Tensor | None = None
+                ) -> dict[str, torch.Tensor]:
+        """x NHWC; in train mode ``seed`` and ``depth_seed`` (int32 tensors)
+        draw the seg and depth heads' dropout masks."""
         h, w = x.shape[1], x.shape[2]
         feat = self.MiTEncoder_0(x)[-1]
         if self.head_mode == 'faithful':
@@ -222,11 +223,12 @@ class SegFormerModel(nn.Module):
                 feat = upsample_like(feat, (h, w))
             out = {'segmentation': self.SegmentationHead_0(feat, up, seed)}
             if self.include_depth:
-                out['depth'] = self.DepthEstimationHead_0(feat, up)
+                out['depth'] = self.DepthEstimationHead_0(feat, up,
+                                                          depth_seed)
             return out
         seg = self.SegmentationHead_0(feat, seed=seed)
         out = {'segmentation': upsample_like(seg, (h, w))}
         if self.include_depth:
-            out['depth'] = upsample_like(self.DepthEstimationHead_0(feat),
-                                         (h, w))
+            out['depth'] = upsample_like(
+                self.DepthEstimationHead_0(feat, seed=depth_seed), (h, w))
         return out

@@ -215,11 +215,13 @@ def seg_batch_stats(P: torch.Tensor, r: int,
 # the core: plain version, kernels, autograd Function
 # ---------------------------------------------------------------------------
 
-def _core_from_pp(pp, a1, c1, wp, bp, seed, rate, r, dtype):
-    """The core on the neighbourhood stack pp [B, h, w, 81, C] (f32),
-    rounded where the kernels round (to ``dtype``)."""
+def _core_from_pp(pp, a1, c1, seed, rate, r, dtype, wp=None, bp=None):
+    """The core on the neighbourhood stack pp [B, h, w, 81, C] (f32):
+    phase passes → affine (a1, c1) → ReLU → hash dropout, rounded to
+    ``dtype`` where the kernels round, then the 1×1 (wp, bp) when given.
+    Returns [B, h·r, w·r, nc] (the seg core's logits) or, without wp, the
+    post-dropout hidden [B, h·r, w·r, C] (the depth core's d1)."""
     b, h, w, _, c = pp.shape
-    nc = wp.shape[1]
     ay = const(_a2, r, device=pp.device)
     ax = const(_a2_dmajor, r, device=pp.device)
     pp = pp.reshape(b, h, w, 9, 9, c)
@@ -230,10 +232,11 @@ def _core_from_pp(pp, a1, c1, wp, bp, seed, rate, r, dtype):
         keep = dropout_keep_mask((b, h * r, w * r, c), seed, rate)
         keep = keep.reshape(b, h, r, w, r, c).permute(0, 1, 3, 2, 4, 5)
         u = torch.where(keep, u * _core_params(rate)[1], 0.0)
-    v = u.to(dtype).float()
-    logits = v @ wp.to(dtype).float() + bp.float()
-    return logits.permute(0, 1, 3, 2, 4, 5).reshape(
-        b, h * r, w * r, nc).to(dtype)
+    out = u.to(dtype)
+    if wp is not None:
+        out = out.float() @ wp.to(dtype).float() + bp.float()
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, h * r, w * r, out.shape[-1]).to(dtype)
 
 
 def seg_core_train_plain(P, a1, c1, wp, bp, seed, rate: float, r: int):
@@ -241,7 +244,7 @@ def seg_core_train_plain(P, a1, c1, wp, bp, seed, rate: float, r: int):
     → logits [B, h·r, w·r, nc] in P's dtype."""
     b, h, w, _, c = P.shape
     pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
-    return _core_from_pp(pp, a1, c1, wp, bp, seed, rate, r, P.dtype)
+    return _core_from_pp(pp, a1, c1, seed, rate, r, P.dtype, wp, bp)
 
 
 def seg_core_train_backward_plain(P, a1, c1, wp, bp, seed, dy, rate: float,
@@ -253,7 +256,7 @@ def seg_core_train_backward_plain(P, a1, c1, wp, bp, seed, dy, rate: float,
     with torch.enable_grad():
         pp = _neighbor_pp(P.detach().reshape(b, h, w, 3, 3, c)).float()
         ins = [t.detach().float().requires_grad_() for t in (pp, a1, c1, wp, bp)]
-        out = _core_from_pp(*ins[:5], seed, rate, r, P.dtype)
+        out = _core_from_pp(*ins[:3], seed, rate, r, P.dtype, *ins[3:])
         dpp, *rest = torch.autograd.grad(out, ins, dy)
     return (dpp.to(P.dtype), *rest)
 
@@ -446,19 +449,26 @@ def seg_head_fused_train(f: torch.Tensor, conv1_kernel: torch.Tensor,
     return out, mean_nb + conv1_bias.float(), var
 
 
+def border_hidden(side, pre, a1, c1b, rate, seed, shape):
+    """The post-dropout hidden [B, N, c1] (f32) on one 1-px border line of
+    the full-resolution field ``shape`` (B, H, W): BN batch-stat affine,
+    ReLU and the interior's hash dropout on the bias-free pre-BN conv1
+    values ``pre``."""
+    hdn = torch.relu(pre.float() * a1 + c1b)
+    if rate > 0.0:
+        keep = _line_mask(side, *shape, a1.shape[-1], seed, rate)
+        hdn = torch.where(keep, hdn / (1.0 - rate), 0.0)
+    return hdn
+
+
 def _paste_seg_borders_train(out, lines, a1, c1b, wp, bp, rate, seed):
     """Overwrite the four 1-px border lines with exact zero-padded values
     (BN batch-stat affine, and the same hash dropout as the interior). The
     overwrite is in place, so the core gets no gradient there."""
     dtype = out.dtype
-    B, H, W = out.shape[:3]
-    c1 = a1.shape[-1]
 
     def head_tail(name, pre):  # [B, N, c1] bias-free pre-BN conv1
-        hdn = torch.relu(pre.float() * a1 + c1b)
-        if rate > 0.0:
-            keep = _line_mask(name, B, H, W, c1, seed, rate)
-            hdn = torch.where(keep, hdn / (1.0 - rate), 0.0)
+        hdn = border_hidden(name, pre, a1, c1b, rate, seed, out.shape[:3])
         return (hdn.to(dtype).float() @ wp.to(dtype).float()
                 + bp.float()).to(dtype)
 

@@ -1,14 +1,21 @@
-"""Batched rain/snow splat mask (counterpart of ``awsegbench/ops/splat.py``,
-the batched kernel ``splat_coverage_batched``).
+"""Rain/snow splat masks (counterpart of ``awsegbench/ops/splat.py``).
 
-``splat_coverage_batched(params, h, w)`` is the union coverage mask of up to
-N capsules per image: pixel P is covered by segment AB with radius r iff
-``dist(P, AB)² ≤ r²``. On a CUDA tensor it launches ``csrc/splat.cu`` (one
-block per drop over the drop's bounding box); on a CPU tensor it runs
-:func:`splat_coverage_plain`, the chunked distance test of the JAX
-package's ``_segment_coverage``. Both use the same operation order, and the
-kernel is built without multiply-add contraction, so the two masks are equal
-bit for bit.
+The union coverage mask of up to N capsules: pixel P is covered by segment
+AB with radius r iff ``dist(P, AB)² ≤ r²``. Three kernels of
+``csrc/splat.cu`` compute it:
+
+* :func:`splat_coverage_batched` (K3), a batch of images [B, N, 8] → [B, H,
+  W], one block per drop over the drop's bounding box;
+* :func:`splat_coverage` for one image [N, 8] → [H, W], which dispatches as
+  the JAX package's ``splat_coverage_pallas`` does: up to 1 Mpx after its
+  padding to its 40×256 windows :func:`splat_coverage_windowed` (K4, one
+  block per drop), above that :func:`splat_coverage_tiled` (K5, one block
+  per 32×32 tile with a bounding-box cull).
+
+On a CPU tensor each runs :func:`splat_coverage_plain`, the chunked
+distance test of the JAX package's ``_segment_coverage``. The kernels use
+the same operation order and are built without multiply-add contraction,
+so every mask equals its plain version bit for bit.
 
 The TPU kernel needed its valid drops compacted and y-sorted first
 (``prepare_splat_batch``); the CUDA kernel does not, so that step is not
@@ -62,6 +69,7 @@ def splat_coverage_plain(params: torch.Tensor, height: int,
 
 
 def _launch(params, height, width):
+    """K3 on params [B, N, 8]."""
     if params.dtype != torch.float32 or params.ndim != 3 \
             or params.shape[2] != 8:
         raise ValueError(f'splat: params must be f32 [B, N, 8], got '
@@ -94,3 +102,78 @@ def splat_coverage_batched(params: torch.Tensor, height: int,
 
 
 splat_coverage_batched.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# one image: K4 (windowed) and K5 (tiled)
+# ---------------------------------------------------------------------------
+
+WIN_H, WIN_W = 40, 256            # the TPU windowed kernel's padding
+_WINDOWED_MAX_PIXELS = 1024 * 1024
+
+
+def uses_windowed(height: int, width: int) -> bool:
+    """The JAX dispatch rule: the windowed kernel when the image padded to
+    WIN_H×WIN_W multiples holds at most 1 Mpx, else the tiled one."""
+    return ((height + (-height) % WIN_H) * (width + (-width) % WIN_W)
+            <= _WINDOWED_MAX_PIXELS)
+
+
+def _launch_one(params, height, width, entry, what):
+    if params.dtype != torch.float32 or params.ndim != 2 \
+            or params.shape[1] != 8:
+        raise ValueError(f'{what}: params must be f32 [N, 8], got '
+                         f'{params.dtype} {tuple(params.shape)}')
+    params = params.contiguous()
+    mask = torch.empty((height, width), dtype=torch.float32,
+                       device=params.device)
+    lib = _build.load('splat')
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(_build.ptr(params), _build.ptr(mask), params.shape[0], height,
+            width, _build.stream_ptr(params))
+    _build.check(lib, rc, what)
+    return mask
+
+
+def splat_coverage_windowed(params: torch.Tensor, height: int,
+                            width: int) -> torch.Tensor:
+    """K4: the mask [H, W] (float 0/1) of one image's capsules [N, 8], one
+    block per drop. CUDA tensors launch the kernel, CPU tensors take the
+    plain version."""
+    if params.is_cuda:
+        mask = _launch_one(params, height, width, 'splat_windowed_launch',
+                           'splat_coverage_windowed')
+        splat_coverage_windowed.launches += 1
+        return mask
+    return splat_coverage_plain(params[None], height, width)[0]
+
+
+splat_coverage_windowed.launches = 0
+
+
+def splat_coverage_tiled(params: torch.Tensor, height: int,
+                         width: int) -> torch.Tensor:
+    """K5: the mask [H, W] (float 0/1) of one image's capsules [N, 8], one
+    block per 32×32 tile. CUDA tensors launch the kernel, CPU tensors take
+    the plain version."""
+    if params.is_cuda:
+        mask = _launch_one(params, height, width, 'splat_tiled_launch',
+                           'splat_coverage_tiled')
+        splat_coverage_tiled.launches += 1
+        return mask
+    return splat_coverage_plain(params[None], height, width)[0]
+
+
+splat_coverage_tiled.launches = 0
+
+
+def splat_coverage(params: torch.Tensor, height: int,
+                   width: int) -> torch.Tensor:
+    """Union coverage mask [H, W] (float 0/1) of one image's capsules
+    ``params`` [N, 8]: K4 up to 1 Mpx padded, K5 above (``uses_windowed``)."""
+    if uses_windowed(height, width):
+        return splat_coverage_windowed(params, height, width)
+    return splat_coverage_tiled(params, height, width)

@@ -2,10 +2,12 @@
 ``build_train`` step, as ``eval/step.py::EvalStep`` is of its eval step).
 
 uint8 batch → ``prepare_batch(train=True)`` (mixed-weather corruption,
-flip and brightness/contrast, ImageNet normalisation) → per-pixel fog
-density → train-mode forward in the compute dtype (bf16 by default) →
-fog-density-aware loss → backward → global-norm clip → AdamW. Everything
-stays on the device; nothing syncs with the host.
+with depth heads the depth target estimated before the flip, flip and
+brightness/contrast, ImageNet normalisation) → per-pixel fog density →
+train-mode forward in the compute dtype (bf16 by default) →
+fog-density-aware loss (with depth heads, plus its depth MSE) → backward →
+global-norm clip → AdamW. Everything stays on the device; nothing syncs
+with the host.
 """
 
 from __future__ import annotations
@@ -26,23 +28,25 @@ BENCH_OPTIMIZER = {'type': 'adamw', 'learning_rate': 1e-3,
                    'weight_decay': 1e-4}
 
 
+DEPTH_SEEDS = ('segformer_depth_seed', 'deeplab_depth_seed')
+
+
 class TrainStep:
     """Puts ``model`` on ``device`` with f32 parameters in train mode and
     steps it with ``FogDensityAwareLoss()``. ``optimizer`` defaults to
     bench.py's (clip 1.0, AdamW lr 1e-3, decay 1e-4), ``precision`` to bf16
-    compute. Models with depth heads are not supported yet."""
+    compute. A model with depth heads (``include_depth=True``, bench.py's
+    configuration) also learns from the estimated depth of the corrupted
+    images through the loss's depth term."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer | None = None,
                  precision: str = 'bf16',
                  device: str | torch.device = 'cuda') -> None:
         self.device = resolve_device(device)
-        if getattr(model, 'include_depth', False):
-            raise NotImplementedError('TrainStep: the depth heads\' train '
-                                      'mode is not ported yet; build the '
-                                      'model with include_depth=False')
         self.policy = get_policy(precision)
         self.model = model.to(device=self.device,
                               dtype=self.policy.param_dtype).train()
+        self.include_depth = getattr(model, 'include_depth', False)
         self.optimizer = optimizer or create_optimizer(
             self.model.parameters(), BENCH_OPTIMIZER, grad_clip=1.0)
         self.loss_fn = FogDensityAwareLoss()
@@ -55,8 +59,10 @@ class TrainStep:
         weather ids [B]. Every random draw comes from ``generator`` (on the
         device) unless given in ``draws``: 'corruption' (as
         ``draw_corruption``), 'augment' (as ``draw_augment``), 'fog_u'
-        [B, H, W], 'seed' (int32, the seg head's dropout) and 'aspp_mask'
-        [B, h/16, w/16, 256] bool. Returns the loss dict."""
+        [B, H, W], 'seed' (int32, the seg head's dropout), 'aspp_mask'
+        [B, h/16, w/16, 256] bool and, with depth heads,
+        'segformer_depth_seed' and 'deeplab_depth_seed' (int32 each).
+        Returns the loss dict."""
         dev = self.device
         draws = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                      if isinstance(v, dict) else v.to(dev))
@@ -67,13 +73,18 @@ class TrainStep:
         prep = prepare_batch(images_u8, labels, weather_ids,
                              generator=generator,
                              draws=draws.get('corruption'),
-                             include_depth=False, train=True,
+                             include_depth=self.include_depth, train=True,
                              aug_draws=draws.get('augment'))
         fog = fog_density_from_weather(weather_ids, h, w, generator,
                                        draws.get('fog_u'))
-        seed = draws.get('seed')
-        if seed is None:
-            seed = draw_dropout_seed(generator, dev)
+        names = ('seed',) + (DEPTH_SEEDS if self.include_depth else ())
+        seeds = {k: draws[k] if k in draws else draw_dropout_seed(generator,
+                                                                  dev)
+                 for k in names}
+        targets = {'label': prep['label']}
+        if self.include_depth:
+            targets['depth'] = prep['depth']
         return train_step(self.model, self.optimizer, self.loss_fn,
-                          self.policy, prep['image'], {'label': prep['label']},
-                          fog, seed, draws.get('aspp_mask'), generator)
+                          self.policy, prep['image'], targets, fog,
+                          seeds.pop('seed'), draws.get('aspp_mask'),
+                          generator, seeds)

@@ -35,7 +35,7 @@ def fog_density_from_weather(weather_ids: torch.Tensor, height: int,
 
 def draw_dropout_seed(generator: torch.Generator,
                       device: torch.device) -> torch.Tensor:
-    """An int32 seed for the seg head's counter-hash dropout."""
+    """An int32 seed for a head's counter-hash dropout."""
     return torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
                          device=device, dtype=torch.int64).to(torch.int32)
 
@@ -45,20 +45,24 @@ def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
                targets: dict[str, torch.Tensor],
                fog_density: torch.Tensor | None, seed: torch.Tensor,
                aspp_mask: torch.Tensor | None = None,
-               generator: torch.Generator | None = None
+               generator: torch.Generator | None = None,
+               depth_seeds: dict[str, torch.Tensor] | None = None
                ) -> dict[str, torch.Tensor]:
     """One optimiser step on a prepared batch: the train-mode forward of
     the parameters cast to the compute dtype (BN running stats updated),
     ``loss_fn(outputs, targets, fog_density)`` on f32 outputs (either loss
     of ``losses/fog_density.py``), the backward onto the f32 masters, clip
-    and update. Returns the loss dict, detached; the gradients stay in the
-    parameters' ``.grad``."""
+    and update. ``depth_seeds`` holds the depth heads' dropout seeds by the
+    model's keyword ('segformer_depth_seed', 'deeplab_depth_seed'). Returns
+    the loss dict, detached; the gradients stay in the parameters'
+    ``.grad``."""
     if not model.training:
         raise ValueError('train_step: the model is not in train mode')
     outputs = functional_call(
         model, policy.cast_to_compute(model),
         (image.to(policy.compute_dtype),),
-        {'seed': seed, 'aspp_mask': aspp_mask, 'generator': generator})
+        {'seed': seed, 'aspp_mask': aspp_mask, 'generator': generator,
+         **(depth_seeds or {})})
     outputs = {k: v.float() for k, v in outputs.items()}
     loss = loss_fn(outputs, targets, fog_density)
     optimizer.zero_grad()

@@ -1,5 +1,6 @@
-"""Batched mixed-weather corruption (counterpart of the fused
-``corrupt_batch`` path of ``awsegbench/weather/corruption.py``).
+"""Weather corruption (counterpart of ``awsegbench/weather/corruption.py``:
+the fused ``corrupt_batch``, ``corrupt_batch_static`` and the single-image
+API ``apply_weather_effect`` with ``apply_fog/rain/snow/night``).
 
 The JAX function draws from per-sample ``jax.random`` keys and corrupts in
 one program. Its streams cannot be reproduced with torch, so the port splits
@@ -17,6 +18,14 @@ it in two:
 
 :func:`corrupt_batch` composes the two. Tests hand JAX's draws to
 ``apply_corruption`` and compare with the JAX output.
+
+The one-weather paths reuse both: :func:`corrupt_batch_static` for a batch
+(rain/snow masks through K3, ``splat_coverage_batched``) and
+:func:`apply_weather_effect` for one image (masks through
+``splat_coverage``, K4 or K5 by the image's size, as the JAX single-image
+path takes its windowed or tiled Pallas kernel). A fixed ``intensity``, the
+reference API's argument, enters the draws: ``draw_corruption`` bakes it
+into the drop counts and the night factor.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch
 
 from .._device import const, resolve_device
 from ..ops.filters import gaussian_blur_cv, gaussian_filter_scipy
-from ..ops.splat import pack_params, splat_coverage_batched
+from ..ops.splat import pack_params, splat_coverage, splat_coverage_batched
 
 WEATHER_CONDITIONS = ('clean', 'fog', 'rain', 'snow', 'night')
 WEATHER_IDS = {name: i for i, name in enumerate(WEATHER_CONDITIONS)}
@@ -73,24 +82,32 @@ def _uniform(lo, hi, shape, g, dev):
 
 
 def draw_corruption(weather_ids: torch.Tensor, h: int, w: int,
-                    generator: torch.Generator) -> dict[str, torch.Tensor]:
+                    generator: torch.Generator,
+                    intensity: float | None = None) -> dict[str, torch.Tensor]:
     """Every random draw of the fused corruption, for a batch of B images.
 
     As the JAX path, every sample gets every weather's draws (the select
     happens in :func:`apply_corruption`). The generator must live on
-    ``weather_ids``' device. Returns float32 tensors (bool for masks):
-    intensities ``[B]``, fog noise ``[B, H, W]``, rain/snow drops
+    ``weather_ids``' device. ``intensity``, when given, is every weather's
+    intensity instead of a draw from its default range (the drop counts and
+    the night factor follow from it). Returns float32 tensors (bool for
+    masks): intensities ``[B]``, fog noise ``[B, H, W]``, rain/snow drops
     ``[B, 500]``, night noise ``[B, H, W, 3]``.
     """
     g, dev = generator, weather_ids.device
     b = weather_ids.shape[0]
     d: dict[str, torch.Tensor] = {}
 
-    d['fog_intensity'] = _uniform(*DEFAULT_INTENSITY['fog'], (b,), g, dev)
+    def inten(weather):
+        if intensity is not None:
+            return torch.full((b,), float(intensity), device=dev)
+        return _uniform(*DEFAULT_INTENSITY[weather], (b,), g, dev)
+
+    d['fog_intensity'] = inten('fog')
     d['fog_noise'] = torch.randn((b, h, w), generator=g, device=dev) * 10.0
 
     # rain (_rain_splat_params): num_drops = int(100 + i·400) valid slots
-    i = _uniform(*DEFAULT_INTENSITY['rain'], (b,), g, dev)
+    i = inten('rain')
     n = MAX_RAIN_DROPS
     x = torch.randint(0, w, (b, n), generator=g, device=dev).float()
     y = torch.randint(0, h, (b, n), generator=g, device=dev).float()
@@ -110,7 +127,7 @@ def draw_corruption(weather_ids: torch.Tensor, h: int, w: int,
              rain_valid=torch.arange(n, device=dev)[None] < num[:, None])
 
     # snow (_snow_splat_params): circles, padded to MAX_RAIN_DROPS slots
-    i = _uniform(*DEFAULT_INTENSITY['snow'], (b,), g, dev)
+    i = inten('snow')
     n = MAX_SNOW_FLAKES
     pad = MAX_RAIN_DROPS - n
     x = torch.randint(0, w, (b, n), generator=g, device=dev).float()
@@ -128,7 +145,7 @@ def draw_corruption(weather_ids: torch.Tensor, h: int, w: int,
              snow_use7=torch.rand((b,), generator=g, device=dev) < 0.5)
 
     # night
-    i = _uniform(*DEFAULT_INTENSITY['night'], (b,), g, dev)
+    i = inten('night')
     d['night_intensity'] = i
     d['night_brightness'] = 1.0 - i * _uniform(
         *NIGHT_PARAMS['brightness_reduction'], (b,), g, dev)
@@ -144,9 +161,18 @@ def apply_corruption(images: torch.Tensor, weather_ids: torch.Tensor,
     images [B, H, W, 3] uint8, weather_ids [B] in [0, 5) → [B, H, W, 3]
     uint8. Clean samples are returned untouched.
     """
-    b, h, w, _ = images.shape
-    dev = images.device
-    img_f = images.to(torch.float32) / 255.0
+    out_f = _corrupt_float(images.to(torch.float32) / 255.0, weather_ids,
+                           draws, splat_coverage_batched)
+    widb = weather_ids.to(images.device).reshape(-1, 1, 1, 1)
+    return torch.where(widb == 0, images, quantize_uint8(out_f))
+
+
+def _corrupt_float(img_f, weather_ids, draws, coverage):
+    """The corruption of float images [B, H, W, 3] in [0, 1], before the
+    quantisation (clean samples get the night branch here; callers select
+    them out). ``coverage`` maps splat params [B, N, 8] to masks [B, H, W]."""
+    b, h, w, _ = img_f.shape
+    dev = img_f.device
     wid = weather_ids.to(dev)
     col = lambda v: v.reshape(b, 1, 1, 1)   # noqa: E731  per-sample scalar
 
@@ -176,7 +202,7 @@ def apply_corruption(images: torch.Tensor, weather_ids: torch.Tensor,
         torch.where(sel, draws['rain_radius'], draws['snow_radius']),
         torch.where(sel, draws['rain_valid'],
                     draws['snow_valid'] & is_snow[:, None]))
-    cov = splat_coverage_batched(params, h, w) > 0.5
+    cov = coverage(params, h, w) > 0.5
 
     haze = col(draws['rain_intensity'] * 0.3)
     base_rain = img_f * (1.0 - haze) + haze * 0.7
@@ -200,11 +226,9 @@ def apply_corruption(images: torch.Tensor, weather_ids: torch.Tensor,
     night_out = (img_f * col(draws['night_brightness'])) * shift + \
         draws['night_noise'] * col(draws['night_intensity'] * 0.5)
 
-    widb = col(wid)
-    out_f = torch.where(widb == WEATHER_IDS['fog'], fog_out,
-                        torch.where(col(is_rain | is_snow), rainsnow_out,
-                                    night_out))
-    return torch.where(widb == 0, images, quantize_uint8(out_f))
+    return torch.where(col(wid) == WEATHER_IDS['fog'], fog_out,
+                       torch.where(col(is_rain | is_snow), rainsnow_out,
+                                   night_out))
 
 
 def corrupt_batch(images: torch.Tensor, weather_ids: torch.Tensor,
@@ -219,3 +243,94 @@ def corrupt_batch(images: torch.Tensor, weather_ids: torch.Tensor,
                             generator)
     return apply_corruption(images, weather_ids, draws)
 
+
+def corrupt_batch_static(images: torch.Tensor, weather: str,
+                         generator: torch.Generator | None = None,
+                         draws: dict[str, torch.Tensor] | None = None,
+                         intensity: float | None = None) -> torch.Tensor:
+    """Corrupt a batch [B, H, W, 3] uint8 with one weather (the eval
+    sweep's per-weather pass), on the images' device. The draws come from
+    ``generator`` (on that device) at ``intensity`` if given, or are given
+    as ``draws``. Rain and snow masks go through K3."""
+    if weather == 'clean':
+        return images
+    wid = _weather_ids(weather, images.shape[0], images.device)
+    if draws is None:
+        draws = _draws_for(wid, images, generator, intensity)
+    return apply_corruption(images, wid, draws)
+
+
+def _weather_ids(weather: str, b: int, device) -> torch.Tensor:
+    if weather not in WEATHER_IDS:
+        raise ValueError(f'Unknown weather type: {weather}')
+    return torch.full((b,), WEATHER_IDS[weather], dtype=torch.int64,
+                      device=device)
+
+
+def _draws_for(wid, images, generator, intensity):
+    if generator is None:
+        raise ValueError('corruption needs a generator or draws')
+    return draw_corruption(wid, images.shape[-3], images.shape[-2], generator,
+                           intensity)
+
+
+def _one_image(image_f, weather, generator, draws, intensity):
+    """One float image [H, W, 3] in [0, 1] under one weather, at B = 1,
+    with the rain/snow mask from ``splat_coverage`` (K4 or K5)."""
+    wid = _weather_ids(weather, 1, image_f.device)
+    if draws is None:
+        draws = _draws_for(wid, image_f, generator, intensity)
+    return _corrupt_float(image_f[None], wid, draws,
+                          lambda p, h, w: splat_coverage(p[0], h, w)[None])[0]
+
+
+def apply_fog(image: torch.Tensor, generator: torch.Generator | None = None,
+              draws: dict[str, torch.Tensor] | None = None,
+              intensity: float | None = None) -> torch.Tensor:
+    """Fog on one float image [H, W, 3] in [0, 1]: scattering over a
+    synthetic depth. Draws as :func:`draw_corruption` makes them at B = 1."""
+    return _one_image(image, 'fog', generator, draws, intensity)
+
+
+def apply_rain(image: torch.Tensor, generator: torch.Generator | None = None,
+               draws: dict[str, torch.Tensor] | None = None,
+               intensity: float | None = None) -> torch.Tensor:
+    """Rain on one float image [H, W, 3] in [0, 1]: haze, streak splat,
+    3×3 blur."""
+    return _one_image(image, 'rain', generator, draws, intensity)
+
+
+def apply_snow(image: torch.Tensor, generator: torch.Generator | None = None,
+               draws: dict[str, torch.Tensor] | None = None,
+               intensity: float | None = None) -> torch.Tensor:
+    """Snow on one float image [H, W, 3] in [0, 1]: brightness boost,
+    flake splat, 3×3 or 7×7 blur."""
+    return _one_image(image, 'snow', generator, draws, intensity)
+
+
+def apply_night(image: torch.Tensor, generator: torch.Generator | None = None,
+                draws: dict[str, torch.Tensor] | None = None,
+                intensity: float | None = None) -> torch.Tensor:
+    """Night on one float image [H, W, 3] in [0, 1]: brightness, colour
+    shift, noise."""
+    return _one_image(image, 'night', generator, draws, intensity)
+
+
+_BRANCHES = {'fog': apply_fog, 'rain': apply_rain, 'snow': apply_snow,
+             'night': apply_night}
+
+
+def apply_weather_effect(image_u8: torch.Tensor, weather_type: str,
+                         generator: torch.Generator | None = None,
+                         draws: dict[str, torch.Tensor] | None = None,
+                         intensity: float | None = None) -> torch.Tensor:
+    """Single-image API mirroring the reference
+    ``WeatherDegradationTransforms.apply_weather_effect``: uint8 [H, W, 3]
+    in and out, on the image's device. 'clean' returns the image; an
+    unknown weather raises ``ValueError``."""
+    if weather_type == 'clean':
+        return image_u8
+    if weather_type not in _BRANCHES:
+        raise ValueError(f'Unknown weather type: {weather_type}')
+    return quantize_uint8(_BRANCHES[weather_type](
+        image_u8.to(torch.float32) / 255.0, generator, draws, intensity))

@@ -31,31 +31,39 @@ Phases, each printing one JSON line:
    99.9% exact, logits within 2e-3.
 5. train kernels: K6 (the attention backward, through ``autograd.grad``
    of the K1/K6 Function), K7 and K8 (the train seg head's core, K8 also
-   through the Function's backward) against their plain versions on the
-   card at the train path's shapes and at ragged shapes off it, timed
-   beside their plain versions, their bounds and, for K6, the backward of
+   through the Function's backward), K9 and K10 (the train depth head's
+   stage-1 core, K10 likewise) against their plain versions on the card at
+   the train path's shapes and at ragged shapes off it, timed beside their
+   plain versions, their bounds and, for K6, the backward of
    ``F.scaled_dot_product_attention`` (a yardstick only).
-6. train path: ``TrainStep`` on the faithful ensemble without depth heads
-   at 512×1024, bf16 compute, batch 8, mixed weather 0–4, clip 1.0 and
-   AdamW(1e-3, decay 1e-4): 2 warm-up and 5 timed steps; images/s, peak
-   memory, the launches of K1, K3, K6, K7 and K8 in that run (each must be
-   > 0); the loss must be finite and the parameters and BN running stats
+6. train path: ``TrainStep`` on bench.py's train configuration, the
+   faithful ensemble with depth heads, at 512×1024, bf16 compute, batch 8,
+   mixed weather 0–4, clip 1.0 and AdamW(1e-3, decay 1e-4): 2 warm-up and
+   5 timed steps; images/s, peak memory, the launches of K1, K3 and K6–K10
+   in that run (each must be > 0); the losses (the depth loss included)
+   must be finite, every parameter must move but those listed in
+   ``STILL_BY_CONSTRUCTION`` with their reasons, and every BN running stat
    must move. Then each layer's forward+backward timed alone and device
    time by kernel over one profiled step.
 7. train parity: one f32 step at 128×256, batch 2, with the same draws
    (made on the CPU) on the card (kernels) and on the CPU (plain versions):
-   loss within 1e-4 relative, BN running stats within 1e-4, the gradients
-   of the SegFormer member and the ensemble's own parameters within rtol
-   2e-3 and 2e-3 of each leaf's largest value. The DeepLab member has only
-   library convs; in f32 its gradients are ill-conditioned at batch 2
-   (tests/test_torch_train_step.py), so each of its leaves is held within
-   0.1 relative L2 error.
+   total and depth loss within 1e-4 relative, BN running stats within
+   1e-4, the gradients of the SegFormer member and the ensemble's own
+   parameters within rtol 2e-3 and 2e-3 of each leaf's largest value. The
+   DeepLab member has only library convs; in f32 its gradients are
+   ill-conditioned at batch 2 (tests/test_torch_train_step.py), so each of
+   its leaves is held within 0.1 relative L2 error.
+8. single image: ``apply_weather_effect`` for rain and snow at 512×1024
+   (K4) and 2048×1024 (K5), counted (K4 and K5 must launch); the uint8
+   images card vs CPU within one step and 99.9% exact; K4 and K5 against
+   their plain version bit for bit, timed beside it and their bounds.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary (each kernel's ``launches`` from the path
-it serves: K1–K3 from the eval path, K6–K8 from the train path, both
-paths' counts under ``launches_by_path``) and the card's ``nvidia-smi``
+``{"kernels": [...]}`` summary of all ten kernels (each kernel's
+``launches`` from the path it serves: K1–K3 from the eval path, K6–K10
+from the train path, K4 and K5 from the single-image path, every path's
+counts under ``launches_by_path``) and the card's ``nvidia-smi``
 name and power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero.
 """
@@ -73,7 +81,17 @@ H, W, B = 512, 1024, 8
 BF16_PEAK, F32_PEAK, HBM_BW = 989e12, 67e12, 3.35e12   # H100 SXM data sheet
 MODEL_CFG = {'type': 'ensemble', 'num_classes': 19, 'include_depth': True,
              'head_mode': 'faithful'}
-TRAIN_CFG = dict(MODEL_CFG, include_depth=False)
+TRAIN_CFG = MODEL_CFG             # bench.py:337's train configuration
+# Parameters that a train step leaves where they were, each with its reason.
+STILL_BY_CONSTRUCTION = {
+    'segformer.SegmentationHead_0.Conv_0.bias':
+        'the fused seg head adds conv1\'s bias only to BN\'s batch mean, '
+        'which the normalisation subtracts: its gradient is zero by '
+        'construction, it starts at zero, and the decay keeps it there',
+    'segformer.DepthEstimationHead_0.Conv_0.bias':
+        'the fused depth stage 1 adds conv1\'s bias only to BN1\'s batch '
+        'mean, as the seg head does: zero gradient, zero start, zero decay',
+}
 
 
 def emit(obj) -> None:
@@ -289,7 +307,6 @@ def phase_main_path(dev):
     import torch
     from awsegbench_torch.eval.step import EvalStep
     from awsegbench_torch.models import count_parameters, create_model
-    from awsegbench_torch.ops import attention, headkernels, splat
 
     model = create_model(MODEL_CFG, device=dev, seed=0, dtype=torch.bfloat16)
     step = EvalStep(model, 19, device=dev, dtype=torch.bfloat16)
@@ -302,23 +319,19 @@ def phase_main_path(dev):
         labels[:, :16] = 255                               # ignored rows
         wids = (torch.arange(B, device=dev) + i) % 5       # mixed 0–4
         batches.append((images, labels, wids))
-    torch.cuda.synchronize()
-    counters = (attention.sr_attention, headkernels.seg_core,
-                splat.splat_coverage_batched)
-    for fn in counters:
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    for batch in batches[:2]:
-        step(*batch, generator=g)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for batch in batches[2:]:
-        step(*batch, generator=g)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f'a kernel of the path never launched: {launches}')
+
+    def run():
+        for batch in batches[:2]:
+            step(*batch, generator=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches[2:]:
+            step(*batch, generator=g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    dt, launches = run_counted(run, EVAL_COUNTERS, 'eval')
     n_valid = sum(int((lab != 255).sum()) for _, lab, _ in batches)
     cm_total = int(step.cm.sum())
     if cm_total != n_valid:
@@ -582,22 +595,147 @@ def phase_train_kernels(dev):
         err_is='relative to each gradient\'s scale', gflop=2 * flops7 / 1e9)
     del args, dy
     torch.cuda.empty_cache()
+    recs.update(depth_kernels(dev, g))
     return recs
 
 
+def depth_kernels(dev, g):
+    """K9 and K10 (the depth head's stage-1 core) against their plain
+    versions: f32 within 1e-4 (K9) and rtol 2e-3 of each gradient's scale
+    (K10, also through the Function's backward), bf16 within 6e-2 of the
+    scale, as K7/K8; at the path's P [b, 16, 32, 9, 128], r = 32, and at a
+    ragged shape off it."""
+    import torch
+    from awsegbench_torch.ops import depthkernels_train as dk
+
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    h, w, c, r, rate = H // 32, W // 32, 128, 32, 0.1
+    seed = torch.tensor(24681357, dtype=torch.int32, device=dev)
+
+    def core_inputs(shape, dt):
+        cc = shape[-1]
+        return (randn(*shape).mul(0.5).to(dt), 1.0 + 0.1 * randn(cc),
+                0.1 * randn(cc))
+
+    def check_k9(shape, rr, dt, tol):
+        args = core_inputs(shape, dt)
+        got = dk.d1_core_train(*args, seed, rate, rr)
+        want = dk.d1_core_train_plain(*args, seed, rate, rr)
+        torch.cuda.synchronize()
+        b_, h_, w_, _, c_ = shape
+        if got.shape != (b_, h_ * rr, w_ * rr, c_) or got.dtype != dt:
+            raise AssertionError(f'd1_core_train shape {tuple(got.shape)}')
+        if dt == torch.float32:
+            check_close(f'd1_core_train f32 {shape} r{rr}', got, want, tol)
+            return args, max_err(got, want)
+        return args, check_scaled(f'd1_core_train {dt} {shape} r{rr}', got,
+                                  want, tol)
+
+    def check_k10(args, rr, dt, tol):
+        b_, h_, w_, _, c_ = args[0].shape
+        dd1 = randn(b_, h_ * rr, w_ * rr, c_).to(dt)
+        ins = [t.detach().requires_grad_() for t in args]
+        got = torch.autograd.grad(dk.d1_core_train(*ins, seed, rate, rr),
+                                  ins, dd1)
+        ins2 = [t.detach().requires_grad_() for t in args]
+        want = torch.autograd.grad(dk.d1_core_train_plain(*ins2, seed, rate,
+                                                          rr), ins2, dd1)
+        torch.cuda.synchronize()
+        return max(check_scaled(f'd1_core_train grad {name} {dt} '
+                                f'{tuple(args[0].shape)} r{rr}', a, b, tol)
+                   for name, a, b in zip(('P', 'a1', 'c1'), got, want))
+
+    errs9, errs10 = {}, {}
+    for dt, tol9, tol10 in ((torch.float32, 1e-4, 2e-3),
+                            (torch.bfloat16, 6e-2, 6e-2)):
+        args, errs9[dt] = check_k9((2, h, w, 9, c), r, dt, tol9)
+        errs10[dt] = check_k10(args, r, dt, tol10)
+    args, _ = check_k9((1, 3, 5, 9, 48), 8, torch.float32, 1e-4)  # ragged
+    check_k10(args, 8, torch.float32, 2e-3)
+    args, e = check_k9((B, h, w, 9, c), r, torch.bfloat16, 6e-2)   # batch 8
+    errs9[torch.bfloat16] = max(errs9[torch.bfloat16], e)
+    dd1 = randn(B, h * r, w * r, c).bfloat16()
+    got = dk.d1_core_train_backward(*args, seed, dd1, rate, r)
+    want = dk.d1_core_train_backward_plain(*args, seed, dd1, rate, r)
+    torch.cuda.synchronize()
+    errs10[torch.bfloat16] = max(errs10[torch.bfloat16], *(
+        check_scaled(f'd1_core_train_backward {name} bf16 b8', a, b, 6e-2)
+        for name, a, b in zip(('dpp', 'da1', 'dc1'), got, want)))
+    del got, want
+
+    # bytes: P read, d1 written (K9); P and dd1 read, dpp written (K10)
+    pix = B * h * r * w * r
+    flops9 = pix * (2 * 9 * 9 * c / r + 2 * 9 * c)
+    p_bytes, d1_bytes = args[0].numel() * 2, pix * c * 2
+    recs = {}
+    bms, by = bound(flops9, p_bytes + d1_bytes + 2 * c * 4, BF16_PEAK)
+    recs['d1_core_train'] = dict(
+        name='d1_core_train', route='cuda',
+        source='awsegbench_torch/csrc/depth_stage1_train.cu',
+        replaces='awsegbench/ops/depthkernels_train.py:82',
+        max_abs_err=errs9[torch.bfloat16],
+        ms=time_ms(lambda: dk.d1_core_train(*args, seed, rate, r)),
+        plain_ms=time_ms(lambda: dk.d1_core_train_plain(*args, seed, rate, r),
+                         reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err_f32=errs9[torch.float32],
+        err_bf16_is='relative to the output\'s scale', gflop=flops9 / 1e9)
+    bms, by = bound(2 * flops9, p_bytes + d1_bytes + 9 * p_bytes + 4 * c * 4,
+                    BF16_PEAK)
+    recs['d1_core_train_backward'] = dict(
+        name='d1_core_train_backward', route='cuda',
+        source='awsegbench_torch/csrc/depth_stage1_train.cu',
+        replaces='awsegbench/ops/depthkernels_train.py:97',
+        max_abs_err=errs10[torch.bfloat16],
+        ms=time_ms(lambda: dk.d1_core_train_backward(*args, seed, dd1, rate,
+                                                     r)),
+        plain_ms=time_ms(lambda: dk.d1_core_train_backward_plain(
+            *args, seed, dd1, rate, r), reps=3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err_f32=errs10[torch.float32],
+        err_is='relative to each gradient\'s scale', gflop=2 * flops9 / 1e9)
+    del args, dd1
+    torch.cuda.empty_cache()
+    return recs
+
+
+EVAL_COUNTERS = ('sr_attention', 'seg_core', 'splat_coverage_batched')
 TRAIN_COUNTERS = ('sr_attention', 'splat_coverage_batched',
                   'sr_attention_backward', 'seg_core_train',
-                  'seg_core_train_backward')
+                  'seg_core_train_backward', 'd1_core_train',
+                  'd1_core_train_backward')
+SINGLE_COUNTERS = ('splat_coverage_windowed', 'splat_coverage_tiled')
 
 
 def counters():
     """Every kernel wrapper's launch counter, by name."""
     from awsegbench_torch.ops import attention, headkernels, splat
+    from awsegbench_torch.ops import depthkernels_train as dk
     from awsegbench_torch.ops import headkernels_train as ht
     return {fn.__name__: fn for fn in (
         attention.sr_attention, headkernels.seg_core,
-        splat.splat_coverage_batched, attention.sr_attention_backward,
-        ht.seg_core_train, ht.seg_core_train_backward)}
+        splat.splat_coverage_batched, splat.splat_coverage_windowed,
+        splat.splat_coverage_tiled, attention.sr_attention_backward,
+        ht.seg_core_train, ht.seg_core_train_backward, dk.d1_core_train,
+        dk.d1_core_train_backward)}
+
+
+def run_counted(run, needed, what):
+    """Every launch counter set to 0, ``run()``, the counts read after it
+    (all of them, by name); raises if a kernel in ``needed`` never
+    launched."""
+    import torch
+    fns = counters()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    if min(launches[k] for k in needed) <= 0:
+        raise AssertionError(f'a kernel of the {what} path never launched: '
+                             f'{launches}')
+    return out, launches
 
 
 def phase_train_path(dev):
@@ -617,33 +755,28 @@ def phase_train_path(dev):
         batches.append((images, labels, (torch.arange(B, device=dev) + i) % 5))
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     stats0 = [b.clone() for b in model.buffers()]
-    fns = counters()
-    torch.cuda.synchronize()
-    for fn in fns.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    losses = [step(*batch, generator=g)['total_loss'] for batch in batches[:2]]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    losses += [step(*batch, generator=g)['total_loss']
-               for batch in batches[2:]]
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in fns.items()}
-    if min(launches[k] for k in TRAIN_COUNTERS) <= 0:
-        raise AssertionError(f'a kernel of the train path never launched: '
-                             f'{launches}')
-    losses = [float(x) for x in losses]
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f'train loss not finite: {losses}')
-    # every parameter moves but the fused seg head's conv bias: its
-    # gradient is zero by construction and it starts at zero, so the decay
-    # leaves it there
+
+    def run():
+        losses = [step(*batch, generator=g) for batch in batches[:2]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(*batch, generator=g) for batch in batches[2:]]
+        torch.cuda.synchronize()
+        return losses, time.perf_counter() - t0
+
+    (loss_dicts, dt), launches = run_counted(run, TRAIN_COUNTERS, 'train')
+    losses = [float(x['total_loss']) for x in loss_dicts]
+    depth_losses = [float(x['depth_loss']) for x in loss_dicts]
+    if not all(map(math.isfinite, losses + depth_losses)) \
+            or min(depth_losses) <= 0:
+        raise AssertionError(f'train losses: {losses}, depth {depth_losses}')
+    # every parameter moves but those listed with their reason
     still = [n for n, p in model.named_parameters()
              if torch.equal(p, params0[n])]
     stats_moved = sum(not torch.equal(b, b0) for b, b0 in zip(model.buffers(),
                                                               stats0))
-    if still != ['segformer.SegmentationHead_0.Conv_0.bias'] \
+    if sorted(still) != sorted(STILL_BY_CONSTRUCTION) \
             or stats_moved != len(stats0):
         raise AssertionError(f'parameters that did not move: {still}; '
                              f'{stats_moved}/{len(stats0)} BN stats moved')
@@ -651,6 +784,8 @@ def phase_train_path(dev):
           'step_ms': dt / 5 * 1e3, 'batch': B, 'hw': [H, W],
           'compute_dtype': 'bfloat16', 'params': count_parameters(model),
           'launches': launches, 'losses': losses,
+          'depth_losses': depth_losses,
+          'params_still_by_construction': STILL_BY_CONSTRUCTION,
           'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30})
     phase_train_layers(step, batches[0], g)
     del step, model, params0, stats0
@@ -699,29 +834,33 @@ def phase_train_layers(step, batch, g):
     model, policy = step.model, step.policy
     dev = images.device
     prep = prepare_batch(images, labels, wids, generator=g,
-                         include_depth=False, train=True)
+                         include_depth=True, train=True)
     x = prep['image'].to(policy.compute_dtype)
-    seed = draw_dropout_seed(g, dev)
+    seed, seed_sf, seed_dl = (draw_dropout_seed(g, dev) for _ in range(3))
 
     def member_fwd_bwd(member, kwargs):
         out = functional_call(member, policy.cast_to_compute(member), (x,),
                               kwargs)
-        out['segmentation'].float().sum().backward()
+        (out['segmentation'].float().sum()
+         + out['depth'].float().sum()).backward()
 
     with torch.no_grad():
         out = functional_call(model, policy.cast_to_compute(model), (x,),
-                              {'seed': seed, 'generator': g})
+                              {'seed': seed, 'generator': g,
+                               'segformer_depth_seed': seed_sf,
+                               'deeplab_depth_seed': seed_dl})
     out = {k: v.float() for k, v in out.items()}
     fog = fog_density_from_weather(wids, H, W, g)
+    targets = {'label': prep['label'], 'depth': prep['depth']}
     layers = {
         'prepare_batch_train': lambda: prepare_batch(
-            images, labels, wids, generator=g, include_depth=False,
+            images, labels, wids, generator=g, include_depth=True,
             train=True),
         'segformer_b0_fwd_bwd': lambda: member_fwd_bwd(
-            model.segformer, {'seed': seed}),
+            model.segformer, {'seed': seed, 'depth_seed': seed_sf}),
         'deeplabv3plus_r50_fwd_bwd': lambda: member_fwd_bwd(
-            model.deeplabv3plus, {'generator': g}),
-        'loss': lambda: step.loss_fn(out, {'label': prep['label']}, fog),
+            model.deeplabv3plus, {'generator': g, 'depth_seed': seed_dl}),
+        'loss': lambda: step.loss_fn(out, targets, fog),
         'clip_adamw': step.optimizer.step}
     layer_ms = {k: time_ms(fn, reps=3, warmup=1) for k, fn in layers.items()}
     emit({'phase': 'train_layers', 'batch': B, 'layer_ms': layer_ms,
@@ -749,6 +888,8 @@ def phase_train_parity(dev):
              'augment': draw_augment(b, g, torch.device('cpu')),
              'fog_u': torch.rand((b, h, w), generator=g),
              'seed': torch.tensor(987654321, dtype=torch.int32),
+             'segformer_depth_seed': torch.tensor(-55555, dtype=torch.int32),
+             'deeplab_depth_seed': torch.tensor(1234567, dtype=torch.int32),
              'aspp_mask': torch.rand((b, h // 16, w // 16, 256),
                                      generator=g) < 0.5}
     state = create_model(TRAIN_CFG, device='cpu', seed=0).state_dict()
@@ -762,7 +903,8 @@ def phase_train_parity(dev):
                                                  grad_clip=0.0),
                          precision='fp32', device=where)
         t0 = time.perf_counter()
-        loss = float(step(images, labels, wids, draws=draws)['total_loss'])
+        loss = {k: float(v) for k, v in step(images, labels, wids,
+                                              draws=draws).items()}
         res[where.type] = (loss, {n: (torch.zeros_like(p) if p.grad is None
                                       else p.grad).cpu()
                                   for n, p in model.named_parameters()},
@@ -770,8 +912,9 @@ def phase_train_parity(dev):
                            time.perf_counter() - t0)
         del step, model
     (lg, gg, sg, _), (lc, gc, sc, cpu_s) = res['cuda'], res['cpu']
-    if not abs(lg - lc) <= 1e-4 * abs(lc):
-        raise AssertionError(f'train loss: card {lg}, CPU {lc}')
+    for k in ('total_loss', 'depth_loss'):
+        if not abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) or lc[k] <= 0:
+            raise AssertionError(f'train {k}: card {lg[k]}, CPU {lc[k]}')
     top = max(t.abs().max().item() for t in gc.values())
     held = dl_rel = 0.0
     for name, want in gc.items():
@@ -799,10 +942,85 @@ def phase_train_parity(dev):
         raise AssertionError(f'BN running stats: card and CPU differ by '
                              f'{stat_err}')
     emit({'phase': 'train_parity', 'batch': b, 'hw': [h, w],
-          'dtype': 'float32', 'loss_card': lg, 'loss_cpu': lc,
+          'dtype': 'float32', 'loss_card': lg['total_loss'],
+          'loss_cpu': lc['total_loss'], 'depth_loss_card': lg['depth_loss'],
+          'depth_loss_cpu': lc['depth_loss'],
           'grad_excess_over_rtol_per_leaf_scale': held,
           'deeplab_grad_max_rel_l2': dl_rel,
           'bn_stats_max_err': stat_err, 'cpu_seconds': cpu_s})
+
+
+def phase_single_image(dev):
+    """The single-image corruption API: ``apply_weather_effect`` for rain
+    and snow at 512×1024 (K4) and 2048×1024 (K5), counted; the uint8 images
+    card vs CPU within one step and 99.9% exact, as the eval parity phase
+    holds them; then K4 and K5 against their plain version on the card, bit
+    for bit, and timed. Returns (records, launches)."""
+    import torch
+    from awsegbench_torch.ops import splat
+    from awsegbench_torch.weather.corruption import (WEATHER_IDS,
+                                                     apply_weather_effect,
+                                                     draw_corruption)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    runs = []
+    for hw in ((H, W), (2048, 1024)):
+        image = torch.randint(0, 256, (*hw, 3), generator=g, device=dev,
+                              dtype=torch.uint8)
+        for weather in ('rain', 'snow'):
+            wid = torch.tensor([WEATHER_IDS[weather]], device=dev)
+            runs.append((hw, weather, image, draw_corruption(wid, *hw, g)))
+
+    outs, launches = run_counted(
+        lambda: [apply_weather_effect(image, weather, draws=draws)
+                 for _, weather, image, draws in runs],
+        SINGLE_COUNTERS, 'single_image')
+    exact = {}
+    for (hw, weather, image, draws), out in zip(runs, outs):
+        cpu = apply_weather_effect(image.cpu(), weather,
+                                   draws={k: v.cpu() for k, v in draws.items()})
+        diff = (out.cpu().int() - cpu.int()).abs()
+        exact[f'{weather}_{hw[0]}x{hw[1]}'] = float((diff == 0).float().mean())
+        if out.shape != image.shape or int(diff.max()) > 1 \
+                or (diff == 0).float().mean() < 0.999 \
+                or (out == image).float().mean() > 0.5:
+            raise AssertionError(f'single image {weather} {hw}: card and CPU '
+                                 f'differ (max {int(diff.max())})')
+
+    recs = {}
+    for (hw, weather, _, d), name, line in (
+            (runs[0], 'splat_coverage_windowed', 38),
+            (runs[2], 'splat_coverage_tiled', 90)):
+        params = splat.pack_params(d['rain_ax'], d['rain_ay'], d['rain_bx'],
+                                   d['rain_by'], d['rain_radius'],
+                                   d['rain_valid'])[0]
+        fn = getattr(splat, name)
+        got = fn(params, *hw)
+        want = splat.splat_coverage_plain(params[None], *hw)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not got.any():
+            raise AssertionError(f'{name}: masks differ in '
+                                 f'{int((got != want).sum())} pixels')
+        # hit tests the data needs: each valid drop's inflated, clipped box
+        lo_x = (torch.minimum(params[:, 0], params[:, 2]) - params[:, 4]).floor() - 1
+        hi_x = (torch.maximum(params[:, 0], params[:, 2]) + params[:, 4]).ceil() + 1
+        lo_y = (torch.minimum(params[:, 1], params[:, 3]) - params[:, 4]).floor() - 1
+        hi_y = (torch.maximum(params[:, 1], params[:, 3]) + params[:, 4]).ceil() + 1
+        area = ((hi_x.clamp(max=hw[1] - 1) - lo_x.clamp(min=0) + 1)
+                * (hi_y.clamp(max=hw[0] - 1) - lo_y.clamp(min=0) + 1))
+        n_tests = float((area * (params[:, 5] > 0)).sum())
+        bms, by = bound(20 * n_tests, hw[0] * hw[1] * 4 + params.numel() * 4,
+                        F32_PEAK)
+        recs[name] = dict(
+            name=name, route='cuda', source='awsegbench_torch/csrc/splat.cu',
+            replaces=f'awsegbench/ops/splat.py:{line}', max_abs_err=0.0,
+            ms=time_ms(lambda: fn(params, *hw)),
+            plain_ms=time_ms(lambda: splat.splat_coverage_plain(
+                params[None], *hw), reps=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=None, hw=list(hw),
+            covered=float(got.mean()))
+    emit({'phase': 'single_image', 'launches': launches, 'u8_exact': exact})
+    return recs, launches
 
 
 def main() -> int:
@@ -844,18 +1062,22 @@ def main() -> int:
     emit({'phase': 'train_kernels', 'kernels': list(train_recs.values())})
     train_launches = phase_train_path(dev)
     phase_train_parity(dev)
+    single_recs, single_launches = phase_single_image(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    by_path = {name: {'eval': eval_launches.get(name, 0),
-                      'train': train_launches[name]}
-               for name in train_launches}
-    summary = [dict({k: dict(rec, launches=eval_launches[name]).get(k)
-                     for k in keys}, launches_by_path=by_path[name])
-               for name, rec in recs.items()]
-    summary += [dict({k: dict(rec, launches=train_launches[name]).get(k)
-                      for k in keys}, launches_by_path=by_path[name])
-                for name, rec in train_recs.items()]
+    paths = {'eval': eval_launches, 'train': train_launches,
+             'single_image': single_launches}
+    summary = []
+    for path, path_recs in (('eval', recs), ('train', train_recs),
+                            ('single_image', single_recs)):
+        for name, rec in path_recs.items():
+            rec = dict(rec, launches=paths[path][name])
+            summary.append(dict({k: rec.get(k) for k in keys},
+                                launches_by_path={p: c[name]
+                                                  for p, c in paths.items()}))
+    if len(summary) != 10:
+        raise AssertionError(f'{len(summary)} kernels in the summary, not 10')
     emit({'kernels': summary})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

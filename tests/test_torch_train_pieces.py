@@ -319,10 +319,10 @@ def test_entry_points_need_a_card_unless_cpu():
     cfg = {'type': 'ensemble', 'num_classes': 19, 'include_depth': False}
     model = create_model(cfg, device='cpu')
     step = TrainStep(model, device='cpu')
-    assert step.model.training
-    with pytest.raises(NotImplementedError, match='include_depth'):
-        TrainStep(create_model({'type': 'segformer'}, device='cpu'),
-                  device='cpu')
+    assert step.model.training and not step.include_depth
+    depth_step = TrainStep(create_model({'type': 'ensemble'}, device='cpu'),
+                           device='cpu')       # bench.py's: with depth heads
+    assert depth_step.include_depth and depth_step.model.training
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             TrainStep(model)
