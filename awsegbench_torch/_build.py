@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``csrc/build/``
 the first time a wrapper needs it, then loaded with ``ctypes``. The library
-file name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. A failed build raises with
-nvcc's output.
+file name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. A failed build raises with nvcc's output.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -51,7 +51,9 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> tuple[Path, list[str]]:
     src = CSRC / f'{name}.cu'
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(flags).encode())
+    headers = b''.join(h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + ' '.join(flags).encode())
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so', flags
 
 

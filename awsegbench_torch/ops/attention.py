@@ -4,10 +4,13 @@
 queries and ``[G, M, D]`` reduced keys/values. On CUDA tensors it is a
 ``torch.autograd.Function``: the forward launches ``csrc/sr_attention.cu``
 (online softmax, K/V streamed through shared memory, D ∈ {32, 64}) and the
-backward ``csrc/sr_attention_bwd.cu`` (P recomputed, dq per query row,
-dk/dv per key row over splits of the queries, summed in order). On CPU
-tensors it runs :func:`sr_attention_plain`, the einsum/softmax of the JAX
-package's ``sr_attention_reference``, and plain autograd through it.
+backward ``csrc/sr_attention_bwd.cu`` (P recomputed, dq per query tile,
+dk/dv per key tile over splits of the queries, summed in order). Each file
+holds two designs, chosen by :func:`_design` from the dtype: bf16 runs on
+the tensor cores (``mma.sync``), f32 on the CUDA cores (TF32 would break
+f32 parity). On CPU tensors it runs :func:`sr_attention_plain`, the
+einsum/softmax of the JAX package's ``sr_attention_reference``, and plain
+autograd through it.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import torch
 from .. import _build
 
 # Query rows per split of the dk/dv kernel: N/1024 splits give the card
-# enough blocks at MiT stage 1 (G = 8, M = 512).
+# enough blocks at MiT stage 1 (G = 8, M = 512). Of 512 to 8192, swept on an
+# H100 by scripts/tune_sr_attention_split.py, 1024 took the least device
+# time per step; the others were within 12% of it.
 _SPLIT_ROWS = 1024
+DESIGNS = ('mma_bf16', 'simt_f32')
 
 
 def sr_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,10 +38,23 @@ def sr_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum('gnm,gmd->gnd', p, v).to(q.dtype)
 
 
-def _check(q, k, v, what):
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise TypeError(f'{what}: q/k/v must share f32 or bf16, got '
+def _design(dtype: torch.dtype, d: int) -> str:
+    """The kernel design that takes q/k/v of ``dtype`` and head_dim ``d``:
+    ``'mma_bf16'`` (tensor cores) for bf16, ``'simt_f32'`` (CUDA cores) for
+    f32. Raises for any other dtype or head_dim."""
+    if d not in (32, 64):
+        raise ValueError(f'the CUDA kernels take head_dim 32 or 64, got {d}')
+    if dtype == torch.bfloat16:
+        return 'mma_bf16'
+    if dtype == torch.float32:
+        return 'simt_f32'
+    raise TypeError(f'the CUDA kernels take f32 or bf16, got {dtype}')
+
+
+def _check(q, k, v, what) -> str:
+    """Validates q/k/v for a launch; returns their design."""
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f'{what}: q/k/v must share a dtype, got '
                         f'{q.dtype}, {k.dtype}, {v.dtype}')
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
@@ -43,30 +62,42 @@ def _check(q, k, v, what):
                          f'k {tuple(k.shape)}, v {tuple(v.shape)}')
     if not (k.device == v.device == q.device):
         raise ValueError(f'{what}: q, k, v on different devices')
-    if q.shape[2] not in (32, 64):
-        raise ValueError(f'{what}: the CUDA kernel takes head_dim 32 or 64, '
-                         f'got {q.shape[2]}')
+    return _design(q.dtype, q.shape[2])
+
+
+def _operand(t):
+    """``t`` contiguous and 16-byte aligned (the bf16 kernels copy rows with
+    16-byte ``cp.async``)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _entry(lib: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry point ``symbol`` of ``csrc/<lib>.cu`` with its argument
+    types (pointers, ints, the scale, the stream) declared once."""
+    fn = getattr(_build.load(lib), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(q, k, v, scale):
-    _check(q, k, v, 'sr_attention')
+    design = _check(q, k, v, 'sr_attention')
     g, n, d = q.shape
     m = k.shape[1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _operand(q), _operand(k), _operand(v)
     out = torch.empty_like(q)
     if g * n == 0 or m == 0:
         return out
-    lib = _build.load('sr_attention')
-    lib.sr_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.sr_attention_launch.restype = ctypes.c_int
-    rc = lib.sr_attention_launch(
+    rc = _entry('sr_attention', 'sr_attention_launch', 4, 5)(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         g, n, m, d, int(q.dtype == torch.bfloat16), float(scale),
         _build.stream_ptr(q))
-    _build.check(lib, rc, 'sr_attention')
+    _build.check(_build.load('sr_attention'), rc, 'sr_attention')
     sr_attention.launches += 1
+    sr_attention.launches_by_design[design] += 1
     return out
 
 
@@ -80,35 +111,33 @@ def sr_attention_backward_plain(q, k, v, dout, scale):
 
 
 def _launch_backward(q, k, v, dout, scale):
-    _check(q, k, v, 'sr_attention_backward')
+    design = _check(q, k, v, 'sr_attention_backward')
     if dout.shape != q.shape or dout.dtype != q.dtype \
             or dout.device != q.device:
         raise ValueError(f'sr_attention_backward: dout {tuple(dout.shape)} '
                          f'{dout.dtype} does not match q')
     g, n, d = q.shape
     m = k.shape[1]
-    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-    dq = torch.empty_like(q)
+    q, k, v, dout = (_operand(t) for t in (q, k, v, dout))
     f32 = dict(dtype=torch.float32, device=q.device)
-    dk = torch.zeros((g, m, d), **f32)
-    dv = torch.zeros((g, m, d), **f32)
     if g * n == 0 or m == 0:
-        return dq.zero_(), dk.to(k.dtype), dv.to(v.dtype)
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    dq = torch.empty_like(q)
+    dk = torch.empty((g, m, d), **f32)       # the reduce kernel writes all
+    dv = torch.empty((g, m, d), **f32)
     splits = -(-n // _SPLIT_ROWS)
     stats = torch.empty((3, g, n), **f32)
     pk = torch.empty((splits, g, m, d), **f32)
     pv = torch.empty((splits, g, m, d), **f32)
-    lib = _build.load('sr_attention_bwd')
-    lib.sr_attention_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.sr_attention_bwd_launch.restype = ctypes.c_int
-    rc = lib.sr_attention_bwd_launch(
+    rc = _entry('sr_attention_bwd', 'sr_attention_bwd_launch', 10, 6)(
         *(_build.ptr(t) for t in (q, k, v, dout, dq, stats, pk, pv, dk, dv)),
         g, n, m, d, int(q.dtype == torch.bfloat16), _SPLIT_ROWS, float(scale),
         _build.stream_ptr(q))
-    _build.check(lib, rc, 'sr_attention_backward')
+    _build.check(_build.load('sr_attention_bwd'), rc,
+                 'sr_attention_backward')
     sr_attention_backward.launches += 1
+    sr_attention_backward.launches_by_design[design] += 1
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -124,6 +153,7 @@ def sr_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sr_attention_backward.launches = 0
+sr_attention_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _SRAttention(torch.autograd.Function):
@@ -156,3 +186,4 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sr_attention.launches = 0
+sr_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -262,6 +262,12 @@ def test_cpu_calls_do_not_count_launches():
               splat.splat_coverage_batched.launches)
     attention.sr_attention(torch.zeros(1, 4, 32), torch.zeros(1, 2, 32),
                            torch.zeros(1, 2, 32), 1.0)
+    attention.sr_attention_backward(
+        *(torch.zeros(1, r, 32, dtype=torch.bfloat16) for r in (4, 2, 2, 4)),
+        1.0)
+    for fn in (attention.sr_attention, attention.sr_attention_backward):
+        assert fn.launches == 0
+        assert fn.launches_by_design == dict.fromkeys(attention.DESIGNS, 0)
     headkernels.seg_core(torch.zeros(1, 1, 1, 9, 16), torch.ones(16),
                          torch.zeros(16), torch.zeros(16, 19), torch.zeros(19),
                          4)
