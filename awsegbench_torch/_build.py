@@ -96,6 +96,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, its argument
+    types declared on first use only (``ctypes.c_void_p`` for pointers and
+    the stream, ``ctypes.c_int`` for ints; it returns a CUDA error code)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def operand(t):
+    """``t`` contiguous and 16-byte aligned, as the tensor-core kernels copy
+    rows with 16-byte ``cp.async``."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
     if rc != 0:

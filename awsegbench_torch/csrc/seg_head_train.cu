@@ -1,12 +1,14 @@
 // Fused faithful segmentation head, train mode: forward (K7) and backward
 // (K8) of the head's core
-//   fine[p,q,c] = Σ_b Ax[q,b] · Σ_a Ay[p,a] · pp[a·9+b, c]   (upsample∘conv3×3)
+//   fine[p,q,c] = Σ_k kron(Ay, Ax)[p·r+q, k] · pp[k, c]    (upsample∘conv3×3)
 //   z = fine·a1[c] + c1[c]                 (BN with batch statistics, folded)
 //   v = keep(y,x,c) ? relu(z)·(1/keep) : 0  (counter-hash dropout)
 //   logits = v · wp + bp                    (1×1)
 // per coarse cell, where pp[(3ky+dy)·9 + 3dx+kx, c] = P[b, i+dy-1, j+dx-1,
 // ky, kx, c] are the clamped 3×3 neighbourhood's coarse partial products
-// P = f·W1 (as in seg_head.cu, K2).
+// P = f·W1 (as in seg_head.cu, K2). Classes: 1 ≤ nc ≤ 32, padded inside
+// each kernel with zero columns of wp (and, in K8, of dy); only k < nc is
+// stored. Shapes: 1 ≤ r ≤ 32, C % 16 == 0.
 //
 // Replaces the TPU kernels awsegbench/ops/headkernels_train.py::
 // _seg_train_fwd_kernel and ::_seg_train_bwd_kernel (pallas_calls in
@@ -15,49 +17,66 @@
 // The dropout mask is a pure function of the element's position: keep iff
 // mix32(idx ^ seed_b) >= round(rate·2³²), idx = (y·W + x)·C + c per image,
 // seed_b = seed ^ mix32(b·0x7FEB352D), mix32 the lowbias32 mixer in uint32
-// (wrap-around multiplies, logical shifts) — the same bits as the TPU
-// kernels, the border strips and the plain version. So the backward
-// regenerates the forward's mask and nothing is stored.
+// (wrap-around multiplies, logical shifts; seg_head_mma.cuh) — the same
+// bits as the TPU kernels, the border strips and the plain version. So the
+// backward regenerates the forward's mask and nothing is stored.
 //
-// Forward (seg_train_fwd): K2's design. The TPU kernel ran one
-// [r², 81]×[81, C] matmul against kron(Ay, Ax); staged in f32 that table is
-// 330 KB, more than a Hopper block's shared memory, so the kernel runs the
-// two 9-tap passes with [r, 9] tables, walks C in 16-channel slices, and
-// keeps each thread's 4 fine pixels × 19 logits in registers: the
-// full-resolution 256-channel hidden never leaves the SM.
+// Forward (K7), two designs chosen by the dtype
+// (ops/headkernels_train.py::_design), as K2's:
+// - 'mma_bf16': K2's tensor-core body (seg_head_mma.cuh) with the hash
+//   dropout switched on by its template flag: one GEMM against the bf16
+//   kron table (the TPU kernel's own operands), the batch-stat affine, ReLU
+//   and dropout in registers, the 1×1 on the tensor cores. The hash costs
+//   about 9 ALU-pipe instructions per element of the full-resolution
+//   hidden (scripts/seg_head_sass.py), this kernel's floor.
+// - 'simt_f32' (seg_train_fwd): K2's CUDA-core design, the two 9-tap
+//   passes with [r, 9] tables in 16-channel slices; each thread keeps its 4
+//   fine pixels' logits in registers.
+// Neither writes the full-resolution 256-channel hidden to device memory.
 //
-// Backward (seg_train_bwd): one block per coarse cell, one thread per
-// channel (256 on the main path). A thread recomputes its channel's
-// r×r fine values and mask, and accumulates in registers everything that
-// sums over the cell's pixels for its channel: da1, dc1, dwp[c, :] and the
-// phase-table transpose dpp[:, c] (81 values). The output gradient tile
-// (r²×19) and the cell's pp (81×256) sit in shared memory and are read by
-// all threads alike. The TPU kernel summed da1/dc1/dwp/dbp over a grid that
-// ran in order; here each block writes its partial sums and seg_train_reduce
-// adds the blocks' rows in block order (deterministic, no float atomics).
+// Backward (K8, seg_train_bwd): one block per coarse cell, one thread per
+// channel (256 on the main path). A thread recomputes its channel's r×r
+// fine values and mask, and accumulates in registers everything that sums
+// over the cell's pixels for its channel: da1, dc1, dwp[c, :] and the
+// phase-table transpose dpp[:, c]. The output gradient tile (r²×nc) and the
+// cell's pp (81×256) sit in shared memory and are read by all threads
+// alike. The TPU kernel summed da1/dc1/dwp/dbp over a grid that ran in
+// order; here each block writes its partial sums and seg_train_reduce adds
+// the blocks' rows in block order (deterministic, no float atomics).
 // dpp [B, h, w, 81, C] goes to device memory; its scatter back to P (the
-// transpose of the neighbourhood gather) is plain PyTorch.
-//
-// Rounding follows the TPU kernels: bf16 mode feeds the matmuls bf16
-// operands (P, wp, dy as given; the post-dropout hidden before the 1×1 and
-// dwp; dfine before the phase transpose) with f32 sums. As in K2, the
-// kron table's bf16 products cannot be rounded inside two passes (exact for
-// r ≤ 8).
+// transpose of the neighbourhood gather) is plain PyTorch. K8 recomputes
+// fine as its forward formed it, so the ReLU and the mask decide as they
+// did there:
+// - f32: the two exact 9-tap passes (y-pass per fine row, x-pass per
+//   pixel), as the simt_f32 forward;
+// - bf16: the kron table rounded to bf16, as the mma_bf16 forward and the
+//   TPU kernel, on the CUDA cores; a pixel's kron row has 36 non-zero
+//   entries (bwd_kron), 36 products for fine and 36 for the transpose.
+//   Rounding as the TPU kernel: bf16 operands (P, wp, dy as given; the
+//   post-dropout hidden before the 1×1 and dwp; dfine before the phase
+//   transpose) with f32 sums.
 //
 // Bound on the H100 (B = 8, 512×1024, C = 256, 19 classes): the forward is
-// about 15.6 kflop per output pixel (1296 y-pass + 4608 x-pass + 9728 for
-// the 1×1), 65.6 GFLOP; the backward about 31 kflop per pixel (the
+// about 15.6 kflop per output pixel factorised (65.6 GFLOP), 258 GFLOP as
+// the kron GEMM with K = 96 and 24 padded classes (0.26 ms at the bf16
+// tensor-core rate); the backward about 31 kflop per pixel factorised (the
 // recompute, dy·wpᵀ, vᵀ·dy, the transposed passes), 131 GFLOP, plus the
-// 170 MB dpp write in bf16. Both are compute-bound (≈0.07 and 0.13 ms at
-// the bf16 tensor-core rate). This first version runs on the CUDA cores in
-// f32, and the backward runs one 160 KB block per SM; tensor-core tiles
-// (wgmma) and fusing the dpp scatter are later work.
+// 170 MB dpp write in bf16. The backward runs on the CUDA cores with one
+// block of up to 219 KB per SM; tensor-core tiles (the kron products are
+// GEMMs there) and fusing the dpp scatter are its next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "seg_head_mma.cuh"
+
 namespace {
+
+using seg_mma::image_seed;
+using seg_mma::mix32;
 
 constexpr int kThreads = 256;
 constexpr int kCS = 16;    // channels per shared slice (forward)
@@ -76,20 +95,6 @@ __device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// seed ^ mix32(b · M1): image b's stream.
-__device__ __forceinline__ uint32_t image_seed(const int* seed, int b) {
-  return (uint32_t)seed[0] ^ mix32((uint32_t)b * 0x7FEB352Du);
 }
 
 __device__ __forceinline__ bool keep_bit(uint32_t bseed, int y, int x, int c,
@@ -119,20 +124,23 @@ __device__ __forceinline__ void gather_pp(const T* __restrict__ P, float* dst,
   }
 }
 
-// ---------------------------------------------------------------- K7
+// ---------------------------------------------------------------- K7, f32
 
-template <typename T, int NC>
+// NCP = 8·⌈nc/8⌉ logits per pixel in registers; classes ≥ nc have zero
+// weights and are not stored.
+template <int NCP>
 __global__ void __launch_bounds__(kThreads)
-    seg_train_fwd(const T* __restrict__ P, const float* __restrict__ ay,
+    seg_train_fwd(const float* __restrict__ P, const float* __restrict__ ay,
                   const float* __restrict__ ax, const float* __restrict__ a1,
-                  const float* __restrict__ c1, const T* __restrict__ wp,
+                  const float* __restrict__ c1, const float* __restrict__ wp,
                   const float* __restrict__ bp, const int* __restrict__ seed,
                   uint32_t thresh, float inv_keep, int drop,
-                  T* __restrict__ out, int h, int w, int C, int r) {
+                  float* __restrict__ out, int h, int w, int C, int r,
+                  int nc) {
   __shared__ float pp_s[81][kCS];
   __shared__ float t_s[kRMax][9][kCS];
   __shared__ float ay_s[kRMax][9];
-  __shared__ float wp_s[kCS][NC];
+  __shared__ float wp_s[kCS][NCP];
   __shared__ float a1_s[kCS], c1_s[kCS];
 
   const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
@@ -147,17 +155,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int t = 0; t < 9; ++t) axr[t] = q < r ? ax[q * 9 + t] : 0.f;
 
-  float acc[kRows][NC];
+  float acc[kRows][NCP];
 #pragma unroll
   for (int t = 0; t < kRows; ++t)
 #pragma unroll
-    for (int k = 0; k < NC; ++k) acc[t][k] = 0.f;
+    for (int k = 0; k < NCP; ++k) acc[t][k] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += kCS) {
     __syncthreads();  // the previous slice is no longer read
     gather_pp(P, &pp_s[0][0], kCS, b, i, j, h, w, C, c0, kCS);
-    for (int e = tid; e < kCS * NC; e += kThreads)
-      wp_s[e / NC][e % NC] = to_f32(wp[(size_t)(c0 + e / NC) * NC + e % NC]);
+    for (int e = tid; e < kCS * NCP; e += kThreads) {
+      const int c = e / NCP, k = e % NCP;
+      wp_s[c][k] = k < nc ? wp[(size_t)(c0 + c) * nc + k] : 0.f;
+    }
     if (tid < kCS) {
       a1_s[tid] = a1[c0 + tid];
       c1_s[tid] = c1[c0 + tid];
@@ -192,9 +202,8 @@ __global__ void __launch_bounds__(kThreads)
               u = keep_bit(bseed, i * r + p, j * r + q, c0 + c, W, C, thresh)
                       ? u * inv_keep
                       : 0.f;
-            const float hid = round_like(u, P);
 #pragma unroll
-            for (int k = 0; k < NC; ++k) acc[t][k] += hid * wp_s[c][k];
+            for (int k = 0; k < NCP; ++k) acc[t][k] += u * wp_s[c][k];
           }
         }
       }
@@ -206,9 +215,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < kRows; ++t) {
       const int p = wy + 8 * t;
       if (p < r) {
-        T* o = out + (((size_t)b * H + i * r + p) * W + j * r + q) * NC;
+        float* o = out + (((size_t)b * H + i * r + p) * W + j * r + q) * nc;
 #pragma unroll
-        for (int k = 0; k < NC; ++k) store(o + k, acc[t][k] + bp[k]);
+        for (int k = 0; k < NCP; ++k)
+          if (k < nc) o[k] = acc[t][k] + bp[k];
       }
     }
   }
@@ -216,8 +226,247 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------- K8
 
-// Dynamic shared memory: dy tile [r·r][NC] then pp [81][kCB], f32.
-template <typename T, int NC>
+// What a K8 thread carries through its channel's pixels: the cell's shared
+// tiles, its channel's weights, and the sums it accumulates.
+template <int NCP>
+struct Bwd {
+  const float* dy_s;          // [r·r][NCP], zero columns past nc
+  float wpr[NCP], dwp[NCP];   // wp[c, :] (zero past nc), Σ v·dy
+  float sa, sc, da, dc;       // a1[c], c1[c], Σ dz·fine, Σ dz
+  uint32_t bseed, thresh;
+  float inv_keep;
+  int drop;
+};
+
+// One fine pixel of the thread's channel c, given its recomputed fine
+// value: dropout, dv = dy·wpᵀ, the sums of dwp, da1 and dc1; returns dfine
+// (rounded to bf16 in bf16 mode, as the TPU kernel feeds it to the phase
+// transpose).
+template <typename T, int NCP>
+__device__ __forceinline__ float bwd_pixel(Bwd<NCP>& s, float fine, int pix,
+                                           uint32_t idx) {
+  const float z = fine * s.sa + s.sc;
+  float u = fmaxf(z, 0.f);
+  bool keep = true;
+  if (s.drop) {
+    keep = mix32(idx ^ s.bseed) >= s.thresh;
+    u = keep ? u * s.inv_keep : 0.f;
+  }
+  const float v = round_like(u, (const T*)nullptr);
+  const float* dyp = s.dy_s + pix * NCP;
+  float dyr[NCP];
+  float dv = 0.f;
+#pragma unroll
+  for (int k = 0; k < NCP; ++k) {
+    dyr[k] = dyp[k];
+    dv += dyr[k] * s.wpr[k];
+  }
+#pragma unroll
+  for (int k = 0; k < NCP; ++k) s.dwp[k] += v * dyr[k];
+  const float du = s.drop ? (keep ? dv * s.inv_keep : 0.f) : dv;
+  const float dz = z > 0.f ? du : 0.f;
+  s.da += dz * fine;
+  s.dc += dz;
+  return round_like(dz * s.sa, (const T*)nullptr);
+}
+
+// f32: the two exact 9-tap passes, as the forward's simt_f32 design (y-pass
+// per fine row, x-pass per pixel; the transpose likewise in two passes).
+template <int NCP>
+__device__ __forceinline__ void bwd_passes(Bwd<NCP>& s, const float* pp_s,
+                                           const float (*ay_s)[9],
+                                           const float (*ax_s)[9], int r,
+                                           int i, int j, int W, int C, int c,
+                                           float* __restrict__ drow) {
+  const int tid = threadIdx.x;
+  float dacc[81];
+#pragma unroll
+  for (int e = 0; e < 81; ++e) dacc[e] = 0.f;
+#pragma unroll 1
+  for (int p = 0; p < r; ++p) {
+    float t[9], tq[9];
+#pragma unroll
+    for (int bb = 0; bb < 9; ++bb) {
+      float acc = 0.f;
+#pragma unroll
+      for (int a = 0; a < 9; ++a)
+        acc += ay_s[p][a] * pp_s[(a * 9 + bb) * kCB + tid];
+      t[bb] = acc;
+      tq[bb] = 0.f;
+    }
+    const uint32_t idx0 = (uint32_t)(((i * r + p) * W + j * r) * C + c);
+#pragma unroll 1
+    for (int q = 0; q < r; ++q) {
+      float fine = 0.f;
+#pragma unroll
+      for (int bb = 0; bb < 9; ++bb) fine += ax_s[q][bb] * t[bb];
+      const float df = bwd_pixel<float>(s, fine, p * r + q,
+                                        idx0 + (uint32_t)(q * C));
+#pragma unroll
+      for (int bb = 0; bb < 9; ++bb) tq[bb] += ax_s[q][bb] * df;
+    }
+#pragma unroll
+    for (int a = 0; a < 9; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 9; ++bb) dacc[a * 9 + bb] += ay_s[p][a] * tq[bb];
+  }
+#pragma unroll
+  for (int e = 0; e < 81; ++e) store(drow + (size_t)e * C, dacc[e]);
+}
+
+// bf16: the kron table's rows rounded to bf16, as K7 and the TPU kernel
+// multiply them. A bilinear phase table has two non-zero coarse offsets per
+// fine line and conv tap: Ay[p, 3ky + d] ≠ 0 only for d ∈ {sy, sy + 1},
+// sy = (Ay[p, 3ky] == 0), which moves from 0 to 1 once as p grows; and
+// Ax[q, 3d + kx] likewise, with sx(q, kx) growing with kx (the tap reads
+// fine position q + kx − 1). So a pixel's kron row has 36 non-zero
+// entries, not 81: 4 per tap (ky, kx). The thread keeps pp and the
+// transpose's sums only for each ky's two live offsets (pps and dac
+// [ky][iy][9], 54 values each), shifting a slot when sy moves (its finished offset goes to
+// device memory), and the pixel body is instantiated for the four x
+// patterns (NX = how many kx have sx = 1, the highest kx first), each a
+// run of fine columns.
+// tab [r][36] holds row p's table, entry ((ky·2 + iy)·2 + ix)·3 + kx =
+// bf16(Ay[p, 3ky + sy + iy] · Ax[q, 3(sx + ix) + kx]).
+template <int NX>
+__device__ __forceinline__ constexpr int sx_of(int kx) {
+  return kx >= 3 - NX ? 1 : 0;
+}
+
+template <int NX, int NCP>
+__device__ __forceinline__ void kron_pixel(Bwd<NCP>& s,
+                                           const float (&pps)[3][2][9],
+                                           float (&dac)[3][2][9],
+                                           const float* tq, int pix,
+                                           uint32_t idx) {
+  float tv[36];  // the pixel's table, for both products
+#pragma unroll
+  for (int e = 0; e < 9; ++e) {
+    const float4 t4 = reinterpret_cast<const float4*>(tq)[e];
+    tv[4 * e] = t4.x;
+    tv[4 * e + 1] = t4.y;
+    tv[4 * e + 2] = t4.z;
+    tv[4 * e + 3] = t4.w;
+  }
+  float f[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int iy = 0; iy < 2; ++iy)
+#pragma unroll
+      for (int ix = 0; ix < 2; ++ix)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+          f[ky] += tv[((ky * 2 + iy) * 2 + ix) * 3 + kx] *
+                   pps[ky][iy][3 * (sx_of<NX>(kx) + ix) + kx];
+  const float df = bwd_pixel<__nv_bfloat16>(s, f[0] + f[1] + f[2], pix, idx);
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int iy = 0; iy < 2; ++iy)
+#pragma unroll
+      for (int ix = 0; ix < 2; ++ix)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+          dac[ky][iy][3 * (sx_of<NX>(kx) + ix) + kx] +=
+              tv[((ky * 2 + iy) * 2 + ix) * 3 + kx] * df;
+}
+
+template <int NCP>
+__device__ __forceinline__ void bwd_kron(Bwd<NCP>& s, const float* pp_s,
+                                         const float (*ay_s)[9],
+                                         const float (*ax_s)[9],
+                                         float (*tab)[36], bool active, int r,
+                                         int i, int j, int W, int C, int c,
+                                         __nv_bfloat16* __restrict__ drow) {
+  const int tid = threadIdx.x;
+  float pps[3][2][9], dac[3][2][9];
+  int sy[3], sy0[3];
+  // the fine columns by x pattern: NX grows with q, so each pattern is one
+  // run of columns, [0, q1), [q1, q2), [q2, q3), [q3, r)
+  int q1 = 0, q2 = 0, q3 = 0;
+  for (int q = 0; q < r; ++q) {
+    const int nx = (ax_s[q][0] == 0.f) + (ax_s[q][1] == 0.f) +
+                   (ax_s[q][2] == 0.f);
+    q1 += nx < 1;
+    q2 += nx < 2;
+    q3 += nx < 3;
+  }
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+    sy[ky] = sy0[ky] = ay_s[0][3 * ky] == 0.f;
+#pragma unroll
+    for (int iy = 0; iy < 2; ++iy)
+#pragma unroll
+      for (int bb = 0; bb < 9; ++bb) {
+        pps[ky][iy][bb] =
+            pp_s[((3 * ky + sy[ky] + iy) * 9 + bb) * kCB + tid];
+        dac[ky][iy][bb] = 0.f;
+      }
+  }
+#pragma unroll 1
+  for (int p = 0; p < r; ++p) {
+    __syncthreads();  // the previous row's table is no longer read
+    for (int e = tid; e < r * 36; e += kThreads) {
+      const int q = e / 36, t = e - 36 * q;
+      const int ky = t / 12, iy = (t / 6) & 1, ix = (t / 3) & 1, kx = t % 3;
+      const int syk = ay_s[p][3 * ky] == 0.f, sxk = ax_s[q][kx] == 0.f;
+      tab[q][t] = round_like(ay_s[p][3 * ky + syk + iy] *
+                                 ax_s[q][3 * (sxk + ix) + kx],
+                             (const __nv_bfloat16*)nullptr);
+    }
+    __syncthreads();
+    // a ky whose window moved: its offset 0 is done, offsets 1, 2 live on
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky) {
+      if (sy[ky] || ay_s[p][3 * ky] != 0.f) continue;
+      sy[ky] = 1;
+#pragma unroll
+      for (int bb = 0; bb < 9; ++bb) {
+        if (active) store(drow + (size_t)((3 * ky) * 9 + bb) * C,
+                          dac[ky][0][bb]);
+        pps[ky][0][bb] = pps[ky][1][bb];
+        dac[ky][0][bb] = dac[ky][1][bb];
+        pps[ky][1][bb] = pp_s[((3 * ky + 2) * 9 + bb) * kCB + tid];
+        dac[ky][1][bb] = 0.f;
+      }
+    }
+    if (!active) continue;
+    const uint32_t idx0 = (uint32_t)(((i * r + p) * W + j * r) * C + c);
+    int q = 0;
+#pragma unroll 1
+    for (; q < q1; ++q)
+      kron_pixel<0>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
+#pragma unroll 1
+    for (; q < q2; ++q)
+      kron_pixel<1>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
+#pragma unroll 1
+    for (; q < q3; ++q)
+      kron_pixel<2>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
+#pragma unroll 1
+    for (; q < r; ++q)
+      kron_pixel<3>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
+  }
+  if (!active) return;
+  // the live offsets, and zeros for an offset no row reached
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int bb = 0; bb < 9; ++bb) {
+#pragma unroll
+      for (int iy = 0; iy < 2; ++iy)
+        store(drow + (size_t)((3 * ky + sy[ky] + iy) * 9 + bb) * C,
+              dac[ky][iy][bb]);
+      if (!sy[ky]) store(drow + (size_t)((3 * ky + 2) * 9 + bb) * C, 0.f);
+      else if (sy0[ky]) store(drow + (size_t)((3 * ky) * 9 + bb) * C, 0.f);
+    }
+}
+
+// NCP classes in registers (the instantiation bwd_ncp picks for nc; zero
+// columns of dy and wp past nc). Dynamic shared memory: dy tile [r·r][NCP]
+// then pp [81][kCB], f32. A block's partial row: da1 [C] | dc1 [C] |
+// dwp [C, nc] | dbp [nc].
+template <typename T, int NCP>
 __global__ void __launch_bounds__(kThreads, 1)
     seg_train_bwd(const T* __restrict__ P, const float* __restrict__ ay,
                   const float* __restrict__ ax, const float* __restrict__ a1,
@@ -225,110 +474,73 @@ __global__ void __launch_bounds__(kThreads, 1)
                   const T* __restrict__ dy, const int* __restrict__ seed,
                   uint32_t thresh, float inv_keep, int drop,
                   T* __restrict__ dpp, float* __restrict__ part, int h, int w,
-                  int C, int r) {
+                  int C, int r, int nc) {
   extern __shared__ float smem[];
-  float* dy_s = smem;              // [r·r][NC]
-  float* pp_s = smem + r * r * NC;  // [81][kCB]
+  float* dy_s = smem;                // [r·r][NCP]
+  float* pp_s = smem + r * r * NCP;  // [81][kCB]
   __shared__ float ay_s[kRMax][9], ax_s[kRMax][9];
+  // bf16 mode: one fine row's kron table (bwd_kron)
+  __shared__ __align__(16) float tab[kRMax][36];
 
   const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int H = h * r, W = w * r;
-  const uint32_t bseed = image_seed(seed, b);
   const size_t blk = ((size_t)b * h + i) * w + j;
-  const int stride = 2 * C + C * NC + NC;
+  const int stride = 2 * C + C * nc + nc;
   float* prow = part + blk * stride;
 
   for (int e = tid; e < r * 9; e += kThreads) {
     ay_s[e / 9][e % 9] = ay[e];
     ax_s[e / 9][e % 9] = ax[e];
   }
-  for (int e = tid; e < r * r * NC; e += kThreads) {
-    const int pix = e / NC, k = e % NC;
+  for (int e = tid; e < r * r * NCP; e += kThreads) {
+    const int pix = e / NCP, k = e % NCP;
     const int p = pix / r, q = pix % r;
-    dy_s[e] = to_f32(dy[(((size_t)b * H + i * r + p) * W + j * r + q) * NC + k]);
+    dy_s[e] = k < nc ? to_f32(dy[(((size_t)b * H + i * r + p) * W + j * r +
+                                  q) * nc + k])
+                     : 0.f;
   }
   __syncthreads();
-  if (tid < NC) {  // dbp: this cell's Σ over pixels, in pixel order
-    float s = 0.f;
-    for (int pix = 0; pix < r * r; ++pix) s += dy_s[pix * NC + tid];
-    prow[2 * C + C * NC + tid] = s;
+  if (tid < nc) {  // dbp: this cell's Σ over pixels, in pixel order
+    float acc = 0.f;
+    for (int pix = 0; pix < r * r; ++pix) acc += dy_s[pix * NCP + tid];
+    prow[2 * C + C * nc + tid] = acc;
   }
 
+  Bwd<NCP> s;
+  s.dy_s = dy_s;
+  s.bseed = image_seed(seed, b);
+  s.thresh = thresh;
+  s.inv_keep = inv_keep;
+  s.drop = drop;
   for (int c0 = 0; c0 < C; c0 += kCB) {
     __syncthreads();  // the previous group's pp is no longer read
     gather_pp(P, pp_s, kCB, b, i, j, h, w, C, c0, kCB);
     __syncthreads();
     const int c = c0 + tid;
-    if (c >= C) continue;
-
-    float wpr[NC], dwp[NC];
+    const bool active = c < C;
+    const int cc = active ? c : 0;
 #pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      wpr[k] = to_f32(wp[(size_t)c * NC + k]);
-      dwp[k] = 0.f;
+    for (int k = 0; k < NCP; ++k) {
+      s.wpr[k] = k < nc ? to_f32(wp[(size_t)cc * nc + k]) : 0.f;
+      s.dwp[k] = 0.f;
     }
-    float dacc[81];
-#pragma unroll
-    for (int e = 0; e < 81; ++e) dacc[e] = 0.f;
-    const float sa = a1[c], sc = c1[c];
-    float da = 0.f, dc = 0.f;
-
-#pragma unroll 1
-    for (int p = 0; p < r; ++p) {
-      float t[9], tq[9];
-#pragma unroll
-      for (int bb = 0; bb < 9; ++bb) {
-        float s = 0.f;
-#pragma unroll
-        for (int a = 0; a < 9; ++a) s += ay_s[p][a] * pp_s[(a * 9 + bb) * kCB + tid];
-        t[bb] = s;
-        tq[bb] = 0.f;
-      }
-#pragma unroll 1
-      for (int q = 0; q < r; ++q) {
-        float fine = 0.f;
-#pragma unroll
-        for (int bb = 0; bb < 9; ++bb) fine += ax_s[q][bb] * t[bb];
-        const float z = fine * sa + sc;
-        float u = fmaxf(z, 0.f);
-        bool keep = true;
-        if (drop) {
-          keep = keep_bit(bseed, i * r + p, j * r + q, c, W, C, thresh);
-          u = keep ? u * inv_keep : 0.f;
-        }
-        const float v = round_like(u, P);
-        const float* dyp = dy_s + (p * r + q) * NC;
-        float dyr[NC];
-        float dv = 0.f;
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          dyr[k] = dyp[k];
-          dv += dyr[k] * wpr[k];
-        }
-#pragma unroll
-        for (int k = 0; k < NC; ++k) dwp[k] += v * dyr[k];
-        const float du = drop ? (keep ? dv * inv_keep : 0.f) : dv;
-        const float dz = z > 0.f ? du : 0.f;
-        da += dz * fine;
-        dc += dz;
-        const float df = round_like(dz * sa, P);
-#pragma unroll
-        for (int bb = 0; bb < 9; ++bb) tq[bb] += ax_s[q][bb] * df;
-      }
-#pragma unroll
-      for (int a = 0; a < 9; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 9; ++bb) dacc[a * 9 + bb] += ay_s[p][a] * tq[bb];
+    s.sa = a1[cc];
+    s.sc = c1[cc];
+    s.da = s.dc = 0.f;
+    T* drow = dpp + blk * 81 * C + cc;
+    if constexpr (std::is_same<T, float>::value) {
+      if (!active) continue;
+      bwd_passes(s, pp_s, ay_s, ax_s, r, i, j, W, C, c, drow);
+    } else {
+      bwd_kron(s, pp_s, ay_s, ax_s, tab, active, r, i, j, W, C, cc, drow);
+      if (!active) continue;
     }
-
-    T* drow = dpp + blk * 81 * C + c;
+    prow[c] = s.da;
+    prow[C + c] = s.dc;
 #pragma unroll
-    for (int e = 0; e < 81; ++e) store(drow + (size_t)e * C, dacc[e]);
-    prow[c] = da;
-    prow[C + c] = dc;
-#pragma unroll
-    for (int k = 0; k < NC; ++k) prow[2 * C + c * NC + k] = dwp[k];
+    for (int k = 0; k < NCP; ++k)
+      if (k < nc) prow[2 * C + c * nc + k] = s.dwp[k];
   }
 }
 
@@ -354,51 +566,71 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kNC = 19;
-
-size_t bwd_smem(int r) { return (size_t)(r * r * kNC + 81 * kCB) * sizeof(float); }
-
-template <typename T>
-int fwd_typed(const void* P, const float* ay, const float* ax, const float* a1,
-              const float* c1, const void* wp, const float* bp, const int* seed,
-              uint32_t thresh, float inv_keep, int drop, void* out, int B,
-              int h, int w, int C, int r, cudaStream_t stream) {
-  seg_train_fwd<T, kNC><<<dim3(w, h, B), kThreads, 0, stream>>>(
-      (const T*)P, ay, ax, a1, c1, (const T*)wp, bp, seed, thresh, inv_keep,
-      drop, (T*)out, h, w, C, r);
+template <int NCP>
+int fwd_f32(const void* P, const float* ay, const float* ax, const float* a1,
+            const float* c1, const void* wp, const float* bp, const int* seed,
+            uint32_t thresh, float inv_keep, int drop, void* out, int B, int h,
+            int w, int C, int r, int nc, cudaStream_t stream) {
+  seg_train_fwd<NCP><<<dim3(w, h, B), kThreads, 0, stream>>>(
+      (const float*)P, ay, ax, a1, c1, (const float*)wp, bp, seed, thresh,
+      inv_keep, drop, (float*)out, h, w, C, r, nc);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NCP>
 int bwd_typed(const void* P, const float* ay, const float* ax, const float* a1,
               const float* c1, const void* wp, const void* dy, const int* seed,
               uint32_t thresh, float inv_keep, int drop, void* dpp, float* part,
-              float* sums, int B, int h, int w, int C, int r,
+              float* sums, int B, int h, int w, int C, int r, int nc,
               cudaStream_t stream) {
-  const size_t smem = bwd_smem(r);
-  int rc = (int)cudaFuncSetAttribute(seg_train_bwd<T, kNC>,
+  const size_t smem = (size_t)(r * r * NCP + 81 * kCB) * sizeof(float);
+  int rc = (int)cudaFuncSetAttribute(seg_train_bwd<T, NCP>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)smem);
   if (rc) return rc;
-  seg_train_bwd<T, kNC><<<dim3(w, h, B), kThreads, smem, stream>>>(
+  seg_train_bwd<T, NCP><<<dim3(w, h, B), kThreads, smem, stream>>>(
       (const T*)P, ay, ax, a1, c1, (const T*)wp, (const T*)dy, seed, thresh,
-      inv_keep, drop, (T*)dpp, part, h, w, C, r);
+      inv_keep, drop, (T*)dpp, part, h, w, C, r, nc);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  const int cols = 2 * C + C * kNC + kNC;
+  const int cols = 2 * C + C * nc + nc;
   seg_train_reduce<<<(cols + 31) / 32, kThreads, 0, stream>>>(
       part, sums, B * h * w, cols);
   return (int)cudaGetLastError();
 }
 
+// K8 keeps a thread's rows of wp, dwp and dy in registers and does all
+// their work for every class it was instantiated for, so the instantiation
+// follows the class count: exactly 19 (Cityscapes, every configuration of
+// the repo), else 8·⌈nc/8⌉ with zero columns past nc, as K2 and K7 pad.
+template <typename T>
+int bwd_ncp(const void* P, const float* ay, const float* ax, const float* a1,
+            const float* c1, const void* wp, const void* dy, const int* seed,
+            uint32_t thresh, float inv_keep, int drop, void* dpp, float* part,
+            float* sums, int B, int h, int w, int C, int r, int nc,
+            cudaStream_t stream) {
+#define K8_CASE(n)                                                            \
+  return bwd_typed<T, n>(P, ay, ax, a1, c1, wp, dy, seed, thresh, inv_keep,  \
+                         drop, dpp, part, sums, B, h, w, C, r, nc, stream);
+  if (nc == 19) K8_CASE(19)
+  switch ((nc + 7) / 8) {
+    case 1: K8_CASE(8)
+    case 2: K8_CASE(16)
+    case 3: K8_CASE(24)
+    default: K8_CASE(32)
+  }
+#undef K8_CASE
+}
+
 bool shapes_ok(int r, int C, int nc) {
-  return r >= 1 && r <= kRMax && C % kCS == 0 && nc == kNC;
+  return r >= 1 && r <= kRMax && C % kCS == 0 && nc >= 1 && nc <= 32;
 }
 
 }  // namespace
 
-// Forward: P [B, h, w, 9, C], wp [C, 19] in P's dtype; ay, ax [r, 9], a1, c1
-// [C], bp [19] f32; seed int32 [1] on the device; out [B, h·r, w·r, 19].
+// Forward: P [B, h, w, 9, C], wp [C, nc] in one dtype (bf16 or f32); ay, ax
+// [r, 9], a1, c1 [C], bp [nc] f32; seed int32 [1] on the device; out
+// [B, h·r, w·r, nc] in P's dtype.
 extern "C" int seg_train_fwd_launch(const void* P, const void* ay,
                                     const void* ax, const void* a1,
                                     const void* c1, const void* wp,
@@ -409,18 +641,28 @@ extern "C" int seg_train_fwd_launch(const void* P, const void* ay,
   if (!shapes_ok(r, C, nc)) return (int)cudaErrorInvalidValue;
   const float *fay = (const float*)ay, *fax = (const float*)ax;
   const float *fa1 = (const float*)a1, *fc1 = (const float*)c1;
-  if (is_bf16)
-    return fwd_typed<__nv_bfloat16>(P, fay, fax, fa1, fc1, wp, (const float*)bp,
-                                    (const int*)seed, thresh, inv_keep, drop,
-                                    out, B, h, w, C, r, (cudaStream_t)stream);
-  return fwd_typed<float>(P, fay, fax, fa1, fc1, wp, (const float*)bp,
-                          (const int*)seed, thresh, inv_keep, drop, out, B, h,
-                          w, C, r, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    const seg_mma::Params prm{
+        (const seg_mma::bf16*)P, fay, fax, fa1, fc1, (const seg_mma::bf16*)wp,
+        (const float*)bp, (const int*)seed, thresh, inv_keep,
+        (seg_mma::bf16*)out, h, w, C, r, nc};
+    return (int)(drop ? seg_mma::launch<true>(prm, B, s)
+                      : seg_mma::launch<false>(prm, B, s));
+  }
+  const float* fbp = (const float*)bp;
+  const int* sd = (const int*)seed;
+  switch ((nc + 7) / 8) {
+    case 1: return fwd_f32<8>(P, fay, fax, fa1, fc1, wp, fbp, sd, thresh, inv_keep, drop, out, B, h, w, C, r, nc, s);
+    case 2: return fwd_f32<16>(P, fay, fax, fa1, fc1, wp, fbp, sd, thresh, inv_keep, drop, out, B, h, w, C, r, nc, s);
+    case 3: return fwd_f32<24>(P, fay, fax, fa1, fc1, wp, fbp, sd, thresh, inv_keep, drop, out, B, h, w, C, r, nc, s);
+    default: return fwd_f32<32>(P, fay, fax, fa1, fc1, wp, fbp, sd, thresh, inv_keep, drop, out, B, h, w, C, r, nc, s);
+  }
 }
 
-// Backward: + dy [B, h·r, w·r, 19] in P's dtype; writes dpp [B, h, w, 81, C]
-// in P's dtype and sums [2C + 19C + 19] f32 = (da1 | dc1 | dwp [C, 19] |
-// dbp); part is f32 scratch [B·h·w, 2C + 19C + 19].
+// Backward: + dy [B, h·r, w·r, nc] in P's dtype; writes dpp [B, h, w, 81, C]
+// in P's dtype and sums [2C + nc·C + nc] f32 = (da1 | dc1 | dwp [C, nc] |
+// dbp); part is f32 scratch [B·h·w, 2C + nc·C + nc].
 extern "C" int seg_train_bwd_launch(const void* P, const void* ay,
                                     const void* ax, const void* a1,
                                     const void* c1, const void* wp,
@@ -433,13 +675,13 @@ extern "C" int seg_train_bwd_launch(const void* P, const void* ay,
   const float *fay = (const float*)ay, *fax = (const float*)ax;
   const float *fa1 = (const float*)a1, *fc1 = (const float*)c1;
   if (is_bf16)
-    return bwd_typed<__nv_bfloat16>(P, fay, fax, fa1, fc1, wp, dy,
-                                    (const int*)seed, thresh, inv_keep, drop,
-                                    dpp, (float*)part, (float*)sums, B, h, w, C,
-                                    r, (cudaStream_t)stream);
-  return bwd_typed<float>(P, fay, fax, fa1, fc1, wp, dy, (const int*)seed,
-                          thresh, inv_keep, drop, dpp, (float*)part,
-                          (float*)sums, B, h, w, C, r, (cudaStream_t)stream);
+    return bwd_ncp<__nv_bfloat16>(P, fay, fax, fa1, fc1, wp, dy,
+                                 (const int*)seed, thresh, inv_keep, drop, dpp,
+                                 (float*)part, (float*)sums, B, h, w, C, r, nc,
+                                 (cudaStream_t)stream);
+  return bwd_ncp<float>(P, fay, fax, fa1, fc1, wp, dy, (const int*)seed, thresh,
+                       inv_keep, drop, dpp, (float*)part, (float*)sums, B, h, w,
+                       C, r, nc, (cudaStream_t)stream);
 }
 
 extern "C" const char* awseg_error_string(int e) {

@@ -25,7 +25,7 @@ from .._device import resolve_device
 from .deeplab import Bottleneck, DeepLabV3PlusModel
 from .ensemble import EnsembleModel
 from .heads import BatchNorm
-from .segformer import SegFormerModel, mit_variant_config
+from .segformer import SegFormerModel, mit_variant_config, mit_variant_name
 
 
 def _init_(model: nn.Module, seed: int) -> None:
@@ -66,7 +66,11 @@ def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
     # decided from the shapes). The JAX config's switch has no other value.
     if cfg.get('fused_upsample', True) is not True:
         raise ValueError('fused_upsample: only true is supported')
-    variant = cfg.get('segformer_variant', 'b0')
+    # The MiT variant: 'segformer_variant' (strict), else a Hugging Face
+    # 'model_name' id, where an id that names no variant falls back to b0.
+    variant = cfg.get('segformer_variant')
+    if variant is None:
+        variant = mit_variant_name(cfg.get('model_name', 'b0'), default='b0')
     if kind == 'segformer':
         hidden_sizes, depths = mit_variant_config(variant)
         model = SegFormerModel(num_classes, include_depth, head_mode,

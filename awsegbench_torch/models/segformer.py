@@ -19,7 +19,9 @@ Parity notes:
 
 from __future__ import annotations
 
+import logging
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -44,13 +46,32 @@ MIT_VARIANTS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
 }
 
 
-def mit_variant_config(name: str) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """(hidden_sizes, depths) of MiT variant 'b0'..'b5'."""
+def mit_variant_name(name: str, default: str | None = None) -> str:
+    """Canonical 'b0'..'b5' from a short name or a Hugging Face model id
+    ('nvidia/segformer-b1-finetuned-ade-512-512', 'nvidia/mit-b3').
+
+    With ``default``, an id that names no variant falls back to it with a
+    warning (a config's ``model_name`` may be any fine-tune's id); without
+    it, such an id raises."""
     key = name.strip().lower()
     if key not in MIT_VARIANTS:
+        m = re.search(r'\bmit-(b[0-5])\b|segformer-(b[0-5])\b', key)
+        if m:
+            key = m.group(1) or m.group(2)
+    if key in MIT_VARIANTS:
+        return key
+    if default is None:
         raise ValueError(f'unknown MiT variant {name!r}; expected one of '
-                         f'{sorted(MIT_VARIANTS)}')
-    return MIT_VARIANTS[key]
+                         f'{sorted(MIT_VARIANTS)} or a segformer-bN model id')
+    logging.getLogger(__name__).warning(
+        'model_name %r names no MiT variant; using %r', name, default)
+    return default
+
+
+def mit_variant_config(name: str, default: str | None = None
+                       ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(hidden_sizes, depths) of a MiT variant name or model id."""
+    return MIT_VARIANTS[mit_variant_name(name, default)]
 
 
 def layer_norm(c: int) -> nn.LayerNorm:

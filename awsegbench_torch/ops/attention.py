@@ -65,29 +65,19 @@ def _check(q, k, v, what) -> str:
     return _design(q.dtype, q.shape[2])
 
 
-def _operand(t):
-    """``t`` contiguous and 16-byte aligned (the bf16 kernels copy rows with
-    16-byte ``cp.async``)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _entry(lib: str, symbol: str, n_ptrs: int, n_ints: int):
-    """The C entry point ``symbol`` of ``csrc/<lib>.cu`` with its argument
-    types (pointers, ints, the scale, the stream) declared once."""
-    fn = getattr(_build.load(lib), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    """The C entry point ``symbol`` of ``csrc/<lib>.cu``: pointers, ints,
+    the scale, the stream."""
+    return _build.entry(lib, symbol, [ctypes.c_void_p] * n_ptrs
+                        + [ctypes.c_int] * n_ints
+                        + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _launch(q, k, v, scale):
     design = _check(q, k, v, 'sr_attention')
     g, n, d = q.shape
     m = k.shape[1]
-    q, k, v = _operand(q), _operand(k), _operand(v)
+    q, k, v = _build.operand(q), _build.operand(k), _build.operand(v)
     out = torch.empty_like(q)
     if g * n == 0 or m == 0:
         return out
@@ -118,7 +108,7 @@ def _launch_backward(q, k, v, dout, scale):
                          f'{dout.dtype} does not match q')
     g, n, d = q.shape
     m = k.shape[1]
-    q, k, v, dout = (_operand(t) for t in (q, k, v, dout))
+    q, k, v, dout = (_build.operand(t) for t in (q, k, v, dout))
     f32 = dict(dtype=torch.float32, device=q.device)
     if g * n == 0 or m == 0:
         return (torch.zeros_like(q), torch.zeros_like(k),

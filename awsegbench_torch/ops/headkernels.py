@@ -11,9 +11,15 @@ conv1×1``. Around the kernel, in plain torch as in the JAX package:
 
 The core, ``seg_core``, turns ``P`` into full-resolution logits without
 storing the full-resolution 256-channel hidden: on a CUDA tensor it launches
-``csrc/seg_head.cu``; on a CPU tensor it runs :func:`seg_core_plain`, the
-``_neighbor_pp`` composition with the phase tables ``Ay``/``Ax`` (the two
-factors of the TPU kernel's ``kron(Ay, Ax)``).
+``csrc/seg_head.cu`` (K2); on a CPU tensor it runs :func:`seg_core_plain`.
+K2 has two designs, chosen by :func:`_design` from the dtype: bf16 runs on
+the tensor cores (``mma_bf16``: one product against the TPU kernel's
+``kron(Ay, Ax)`` phase table, whose entries it rounds to bf16 as the TPU
+kernel does), f32 on the CUDA cores (``simt_f32``: the table's two factors
+``Ay``/``Ax`` as two 9-tap passes; TF32 would break f32 parity). The plain
+version rounds as the kernel for its dtype (:func:`phase_passes`). Class
+counts 1 to 32 (``NC_MAX``) reach the kernels; a CUDA tensor with more
+raises.
 
 BN here is eval mode, ``y = (x − mean)·scale/sqrt(var + eps) + bias`` with
 eps 1e-5, folded as ``a = scale/sqrt(var + eps)``, ``c = bias − mean·a +
@@ -31,6 +37,9 @@ import torch
 from .. import _build
 from .._device import const
 from .upconv import _shift_gather, conv1_border_lines
+
+DESIGNS = ('mma_bf16', 'simt_f32')
+NC_MAX = 32   # the most classes the seg-head kernels take
 
 
 def _u(p: float, r: int) -> list[tuple[int, float]]:
@@ -88,18 +97,36 @@ def _bn_fold(bias, scale, offset, mean, var, eps):
     return a, c
 
 
+def _ayx_bf16(r: int) -> torch.Tensor:
+    """kron(Ay, Ax) with each f32 product rounded to bf16 (held in f32): the
+    TPU kernel's bf16 phase table, and the bf16 kernels' A operand."""
+    return torch.from_numpy(_ayx(r)).bfloat16().float()
+
+
+def phase_passes(pp: torch.Tensor, r: int, kron_bf16: bool) -> torch.Tensor:
+    """upsample×r∘conv3×3 on a cell's neighbourhood stack: pp [B, h, w, 81,
+    C] (f32) → fine [B, h, w, r, r, C] (f32). With ``kron_bf16``, one
+    product against the bf16-rounded kron table (the bf16 kernels and the
+    TPU kernel); else the two exact f32 9-tap passes."""
+    b, h, w, _, c = pp.shape
+    if kron_bf16:
+        table = const(_ayx_bf16, r, device=pp.device)
+        return torch.einsum('mk,bhwkc->bhwmc', table, pp).reshape(
+            b, h, w, r, r, c)
+    ay = const(_a2, r, device=pp.device)
+    ax = const(_a2_dmajor, r, device=pp.device)
+    t = torch.einsum('pa,bhwaxc->bhwpxc', ay, pp.reshape(b, h, w, 9, 9, c))
+    return torch.einsum('qx,bhwpxc->bhwpqc', ax, t)
+
+
 def seg_core_plain(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
                    wp: torch.Tensor, bp: torch.Tensor, r: int) -> torch.Tensor:
     """Plain version of the kernel: P [B, h, w, 9, C] (taps ky·3+kx) →
     logits [B, h·r, w·r, nc] in P's dtype, rounded where the kernel rounds."""
     b, h, w, _, c = P.shape
     nc = wp.shape[1]
-    ay = const(_a2, r, device=P.device)
-    ax = const(_a2_dmajor, r, device=P.device)
     pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
-    pp = pp.reshape(b, h, w, 9, 9, c)                      # [.., a, b, C]
-    t = torch.einsum('pa,bhwaxc->bhwpxc', ay, pp)         # y-pass
-    fine = torch.einsum('qx,bhwpxc->bhwpqc', ax, t)        # [B,h,w,r,r,C]
+    fine = phase_passes(pp, r, P.dtype == torch.bfloat16)  # [B,h,w,r,r,C]
     hidden = torch.relu(fine * a1.float() + c1.float())
     hidden = hidden.to(P.dtype).float()
     logits = hidden @ wp.to(P.dtype).float() + bp.float()
@@ -107,44 +134,61 @@ def seg_core_plain(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
         b, h * r, w * r, nc).to(P.dtype)
 
 
-def _launch(P, a1, c1, wp, bp, r):
-    if P.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'seg_core: P must be f32 or bf16, got {P.dtype}')
+def _design(dtype: torch.dtype) -> str:
+    """The design of the seg-head forward kernels (K2, K7) for ``dtype``:
+    ``'mma_bf16'`` (tensor cores) for bf16, ``'simt_f32'`` (CUDA cores) for
+    f32. Raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return 'mma_bf16'
+    if dtype == torch.float32:
+        return 'simt_f32'
+    raise TypeError(f'the seg-head kernels take f32 or bf16, got {dtype}')
+
+
+def check_shapes(P, wp, a1, c1, bp, r, what) -> str:
+    """Validates a seg-head kernel's operands; returns their design."""
+    design = _design(P.dtype)
     b, h, w, nine, c = P.shape
     nc = wp.shape[1]
     if nine != 9 or tuple(wp.shape) != (c, nc) or not 1 <= r <= 32 \
             or c % 16:
-        raise ValueError(f'seg_core: bad shapes P {tuple(P.shape)}, wp '
-                         f'{tuple(wp.shape)}, r {r} (kernel: r ≤ 32, C % 16 '
-                         f'== 0)')
-    if nc != 19:
-        raise ValueError(f'seg_core: the CUDA kernel is built for 19 '
-                         f'classes, got {nc}')
+        raise ValueError(f'{what}: bad shapes P {tuple(P.shape)}, wp '
+                         f'{tuple(wp.shape)}, r {r} (kernel: P [B, h, w, 9, '
+                         f'C], 1 ≤ r ≤ 32, C % 16 == 0)')
+    if not 1 <= nc <= NC_MAX:
+        raise ValueError(f'{what}: the kernels take 1 to {NC_MAX} classes, '
+                         f'got {nc}')
     if (a1.numel(), c1.numel(), bp.numel()) != (c, c, nc):
-        raise ValueError(f'seg_core: a1/c1 need {c} values and bp {nc}, got '
+        raise ValueError(f'{what}: a1/c1 need {c} values and bp {nc}, got '
                          f'{a1.numel()}, {c1.numel()}, {bp.numel()}')
+    return design
+
+
+def _launch(P, a1, c1, wp, bp, r):
+    design = check_shapes(P, wp, a1, c1, bp, r, 'seg_core')
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (P, a1, c1, wp, bp)):
         raise NotImplementedError('seg_core: the CUDA kernel is eval only')
+    b, h, w, _, c = P.shape
+    nc = wp.shape[1]
     dev = P.device
     f32 = dict(dtype=torch.float32, device=dev)
-    P = P.contiguous()
+    P = _build.operand(P)
     wp = wp.to(P.dtype).contiguous()
     ay = const(_a2, r, device=dev)
     ax = const(_a2_dmajor, r, device=dev)
     a1, c1, bp = (t.to(**f32).contiguous() for t in (a1, c1, bp))
     out = torch.empty((b, h * r, w * r, nc), dtype=P.dtype, device=dev)
-    lib = _build.load('seg_head')
-    lib.seg_head_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.seg_head_launch.restype = ctypes.c_int
-    rc = lib.seg_head_launch(
+    rc = _build.entry('seg_head', 'seg_head_launch',
+                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p])(
         _build.ptr(P), _build.ptr(ay), _build.ptr(ax), _build.ptr(a1),
         _build.ptr(c1), _build.ptr(wp), _build.ptr(bp), _build.ptr(out),
         b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
         _build.stream_ptr(P))
-    _build.check(lib, rc, 'seg_core')
+    _build.check(_build.load('seg_head'), rc, 'seg_core')
     seg_core.launches += 1
+    seg_core.launches_by_design[design] += 1
     return out
 
 
@@ -159,6 +203,7 @@ def seg_core(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
 
 
 seg_core.launches = 0
+seg_core.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def coarse_partial_products(f: torch.Tensor,

@@ -21,8 +21,15 @@ without storing the full-resolution 256-channel hidden:
   K7 and whose backward launches K8 (recompute, regenerate the mask, write
   ``dpp`` and the sums of da1/dc1/dwp/dbp), then scatters ``dpp`` back to
   ``P`` in plain torch. It saves ``P``, a1, c1, wp and the seed, never the
-  hidden. On CPU tensors it is :func:`seg_core_train_plain` under plain
-  autograd.
+  hidden. K7 has K2's two designs (``headkernels._design``): bf16 on the
+  tensor cores against the bf16-rounded kron table, as the TPU kernel
+  rounds it, with the hash dropout in registers; f32 on the CUDA cores as
+  two 9-tap passes. K8 runs on the CUDA cores and recomputes fine as K7
+  formed it for the dtype (the bf16 kron table, or the f32 passes), so
+  forward and backward see one ReLU and one mask, as in the TPU kernels.
+  On CPU tensors the core is :func:`seg_core_train_plain` under plain
+  autograd, which rounds as the kernels do for the dtype. Class counts 1
+  to 32 reach the kernels, which pad the class axis inside.
 
 ``P [B, h, w, 9, C]`` (taps ky·3+kx) is the port's layout of the coarse
 partial products, as in ``ops/headkernels.py``; the JAX package's
@@ -39,8 +46,8 @@ import torch
 
 from .. import _build
 from .._device import const
-from .headkernels import (_a2, _a2_dmajor, _ayx, _neighbor_pp,
-                          coarse_partial_products)
+from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx, _neighbor_pp,
+                          check_shapes, coarse_partial_products, phase_passes)
 from .upconv import conv1_border_lines
 
 _M1 = 0x7FEB352D
@@ -215,18 +222,16 @@ def seg_batch_stats(P: torch.Tensor, r: int,
 # the core: plain version, kernels, autograd Function
 # ---------------------------------------------------------------------------
 
-def _core_from_pp(pp, a1, c1, seed, rate, r, dtype, wp=None, bp=None):
+def _core_from_pp(pp, a1, c1, seed, rate, r, dtype, wp=None, bp=None,
+                  kron_bf16=False):
     """The core on the neighbourhood stack pp [B, h, w, 81, C] (f32):
-    phase passes → affine (a1, c1) → ReLU → hash dropout, rounded to
+    phase passes (:func:`phase_passes`, the bf16 kron table with
+    ``kron_bf16``) → affine (a1, c1) → ReLU → hash dropout, rounded to
     ``dtype`` where the kernels round, then the 1×1 (wp, bp) when given.
     Returns [B, h·r, w·r, nc] (the seg core's logits) or, without wp, the
     post-dropout hidden [B, h·r, w·r, C] (the depth core's d1)."""
     b, h, w, _, c = pp.shape
-    ay = const(_a2, r, device=pp.device)
-    ax = const(_a2_dmajor, r, device=pp.device)
-    pp = pp.reshape(b, h, w, 9, 9, c)
-    t = torch.einsum('pa,bhwaxc->bhwpxc', ay, pp)         # y-pass
-    fine = torch.einsum('qx,bhwpxc->bhwpqc', ax, t)        # [B,h,w,r,r,C]
+    fine = phase_passes(pp, r, kron_bf16)                  # [B,h,w,r,r,C]
     u = torch.relu(fine * a1.float() + c1.float())
     if rate > 0.0:
         keep = dropout_keep_mask((b, h * r, w * r, c), seed, rate)
@@ -244,19 +249,23 @@ def seg_core_train_plain(P, a1, c1, wp, bp, seed, rate: float, r: int):
     → logits [B, h·r, w·r, nc] in P's dtype."""
     b, h, w, _, c = P.shape
     pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
-    return _core_from_pp(pp, a1, c1, seed, rate, r, P.dtype, wp, bp)
+    return _core_from_pp(pp, a1, c1, seed, rate, r, P.dtype, wp, bp,
+                         kron_bf16=P.dtype == torch.bfloat16)
 
 
 def seg_core_train_backward_plain(P, a1, c1, wp, bp, seed, dy, rate: float,
                                   r: int):
     """Plain version of K8: (dpp [B, h, w, 81, C] in P's dtype, da1, dc1,
     dwp, dbp in f32), the gradients of the core on its neighbourhood stack
-    for the output gradient ``dy``."""
+    for the output gradient ``dy``: autograd through the forward's plain
+    version, which forms fine as K7 and K8 do for the dtype (the bf16 kron
+    table in bf16)."""
     b, h, w, _, c = P.shape
     with torch.enable_grad():
         pp = _neighbor_pp(P.detach().reshape(b, h, w, 3, 3, c)).float()
         ins = [t.detach().float().requires_grad_() for t in (pp, a1, c1, wp, bp)]
-        out = _core_from_pp(*ins[:3], seed, rate, r, P.dtype, *ins[3:])
+        out = _core_from_pp(*ins[:3], seed, rate, r, P.dtype, *ins[3:],
+                            kron_bf16=P.dtype == torch.bfloat16)
         dpp, *rest = torch.autograd.grad(out, ins, dy)
     return (dpp.to(P.dtype), *rest)
 
@@ -288,76 +297,67 @@ def _shift_gather_adjoint(g: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
-    if P.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'{what}: P must be f32 or bf16, got {P.dtype}')
-    b, h, w, nine, c = P.shape
-    nc = wp.shape[1]
-    if nine != 9 or tuple(wp.shape) != (c, nc) or not 1 <= r <= 32 \
-            or c % 16 or nc != 19:
-        raise ValueError(f'{what}: bad shapes P {tuple(P.shape)}, wp '
-                         f'{tuple(wp.shape)}, r {r} (kernel: r ≤ 32, '
-                         f'C % 16 == 0, 19 classes)')
-    if (a1.numel(), c1.numel(), bp.numel()) != (c, c, nc):
-        raise ValueError(f'{what}: a1/c1 need {c} values and bp {nc}')
+    design = check_shapes(P, wp, a1, c1, bp, r, what)
     if seed.numel() != 1 or seed.device != P.device:
         raise ValueError(f'{what}: seed must be one int32 on P\'s device')
     dev = P.device
     f32 = dict(dtype=torch.float32, device=dev)
-    return (P.contiguous(), const(_a2, r, device=dev),
-            const(_a2_dmajor, r, device=dev),
-            *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
-            wp.detach().to(P.dtype).contiguous(),
-            bp.detach().to(**f32).contiguous(),
-            seed.detach().to(torch.int32).reshape(1).contiguous())
+    return design, (_build.operand(P), const(_a2, r, device=dev),
+                    const(_a2_dmajor, r, device=dev),
+                    *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
+                    wp.detach().to(P.dtype).contiguous(),
+                    bp.detach().to(**f32).contiguous(),
+                    seed.detach().to(torch.int32).reshape(1).contiguous())
+
+
+# pointers (8), thresh, 1/keep, dropout on; then the forward's out or the
+# backward's dpp, part, sums; B, h, w, C, r, nc, bf16; the stream
+_HEAD = [ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int]
+_TAIL = [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _launch_forward(P, a1, c1, wp, bp, seed, rate, r):
-    P, ay, ax, a1, c1, wp, bp, seed = _kernel_args(P, a1, c1, wp, bp, seed,
-                                                   r, 'seg_core_train')
+    design, args = _kernel_args(P, a1, c1, wp, bp, seed, r, 'seg_core_train')
+    P = args[0]
     b, h, w, _, c = P.shape
+    nc = wp.shape[1]
     thresh, inv_keep = _core_params(rate)
-    out = torch.empty((b, h * r, w * r, 19), dtype=P.dtype, device=P.device)
-    lib = _build.load('seg_head_train')
-    lib.seg_train_fwd_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p] + [ctypes.c_int] * 7
-        + [ctypes.c_void_p])
-    lib.seg_train_fwd_launch.restype = ctypes.c_int
-    rc = lib.seg_train_fwd_launch(
-        *(_build.ptr(t) for t in (P, ay, ax, a1, c1, wp, bp, seed)),
-        thresh, inv_keep, int(rate > 0.0), _build.ptr(out), b, h, w, c, r, 19,
-        int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
-    _build.check(lib, rc, 'seg_core_train')
+    out = torch.empty((b, h * r, w * r, nc), dtype=P.dtype, device=P.device)
+    rc = _build.entry('seg_head_train', 'seg_train_fwd_launch',
+                      _HEAD + [ctypes.c_void_p] + _TAIL)(
+        *(_build.ptr(t) for t in args), thresh, inv_keep, int(rate > 0.0),
+        _build.ptr(out), b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
+        _build.stream_ptr(P))
+    _build.check(_build.load('seg_head_train'), rc, 'seg_core_train')
     seg_core_train.launches += 1
+    seg_core_train.launches_by_design[design] += 1
     return out
 
 
 def _launch_backward(P, a1, c1, wp, bp, seed, dy, rate, r):
-    P, ay, ax, a1, c1, wp, bp, seed = _kernel_args(P, a1, c1, wp, bp, seed,
-                                                   r, 'seg_core_train_backward')
+    _, args = _kernel_args(P, a1, c1, wp, bp, seed, r,
+                           'seg_core_train_backward')
+    P = args[0]
     b, h, w, _, c = P.shape
-    if tuple(dy.shape) != (b, h * r, w * r, 19):
+    nc = wp.shape[1]
+    if tuple(dy.shape) != (b, h * r, w * r, nc):
         raise ValueError(f'seg_core_train_backward: dy {tuple(dy.shape)}')
     dy = dy.to(P.dtype).contiguous()
     thresh, inv_keep = _core_params(rate)
-    cols = 2 * c + 19 * c + 19
+    cols = 2 * c + nc * c + nc
     dpp = torch.empty((b, h, w, 81, c), dtype=P.dtype, device=P.device)
     part = torch.empty((b * h * w, cols), dtype=torch.float32, device=P.device)
     sums = torch.empty(cols, dtype=torch.float32, device=P.device)
-    lib = _build.load('seg_head_train')
-    lib.seg_train_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.seg_train_bwd_launch.restype = ctypes.c_int
-    rc = lib.seg_train_bwd_launch(
-        *(_build.ptr(t) for t in (P, ay, ax, a1, c1, wp, dy, seed)),
-        thresh, inv_keep, int(rate > 0.0),
-        *(_build.ptr(t) for t in (dpp, part, sums)), b, h, w, c, r, 19,
-        int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
-    _build.check(lib, rc, 'seg_core_train_backward')
+    rc = _build.entry('seg_head_train', 'seg_train_bwd_launch',
+                      _HEAD + [ctypes.c_void_p] * 3 + _TAIL)(
+        *(_build.ptr(t) for t in (*args[:6], dy, args[7])), thresh, inv_keep,
+        int(rate > 0.0), *(_build.ptr(t) for t in (dpp, part, sums)),
+        b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
+        _build.stream_ptr(P))
+    _build.check(_build.load('seg_head_train'), rc, 'seg_core_train_backward')
     seg_core_train_backward.launches += 1
-    da1, dc1, dwp, dbp = sums.split([c, c, 19 * c, 19])
-    return dpp, da1, dc1, dwp.reshape(c, 19), dbp
+    da1, dc1, dwp, dbp = sums.split([c, c, nc * c, nc])
+    return dpp, da1, dc1, dwp.reshape(c, nc), dbp
 
 
 def seg_core_train_backward(P, a1, c1, wp, bp, seed, dy, rate: float, r: int):
@@ -404,6 +404,7 @@ def seg_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
 
 
 seg_core_train.launches = 0
+seg_core_train.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,8 @@ Phases, each printing one JSON line:
    plain versions, their bounds and, for K6, the backward of
    ``F.scaled_dot_product_attention`` (a yardstick only); K6 called twice
    on the same inputs must give bit-equal gradients (no float atomics).
+   K7 also gets its hash floor, counted in the SASS of the library this
+   run built (``scripts/seg_head_sass.py``).
 6. train path: ``TrainStep`` on bench.py's train configuration, the
    faithful ensemble with depth heads, at 512×1024, bf16 compute, batch 8,
    mixed weather 0–4, clip 1.0 and AdamW(1e-3, decay 1e-4): 2 warm-up and
@@ -134,9 +136,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, names, reps: int = 5) -> float:
     """Device time of one call of ``fn`` in ms, by torch.profiler: the
-    kernels whose names hold one of ``names``, summed, over ``reps`` calls
-    after a warm-up. Unlike ``time_ms`` it leaves out the host's time to
-    launch them."""
+    kernels whose names hold one of ``names``, over ``reps`` calls after a
+    warm-up. Unlike ``time_ms`` it leaves out the host's time to launch
+    them. The profile can miss a launch's record (one of five K7 launches
+    in some runs), so the mean over the records it has is scaled by the
+    launches a call makes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -147,10 +151,13 @@ def device_ms(fn, names, reps: int = 5) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and any(name in e.name for name in names))
-    return us / reps / 1e3
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and any(name in e.name for name in names)]
+    if not us:
+        raise AssertionError(f'no kernel named like {names} in the profile')
+    per_call = max(1, round(len(us) / reps))
+    return sum(us) / len(us) * per_call / 1e3
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -183,11 +190,86 @@ def check_scaled(name, got, want, tol):
     return err / scale if scale else 0.0
 
 
+# The seg-head forward kernels (K2, K7) against their plain versions: f32
+# within 1e-4; bf16 within 6e-2 (the plain versions round as the kernels,
+# and the sums run in another order: a hidden value on a rounding boundary
+# may flip by one bf16 step). Off the path's shapes: ragged h/w, every r
+# class (4, 8, 32) and the class counts 5 and 7 (one and two n-tiles).
+SEG_TOLS = {'float32': 1e-4, 'bfloat16': 6e-2}
+SEG_RAGGED = (((1, 3, 5, 9, 32), 32, 5), ((2, 3, 5, 9, 48), 8, 7),
+              ((1, 5, 3, 9, 16), 4, 19), ((2, 2, 3, 9, 32), 32, 7))
+# The seg-head forward designs by the dtype they take (ops/headkernels.py).
+SEG_DESIGNS = {'bfloat16': 'mma_bf16', 'float32': 'simt_f32'}
+
+
+def hash_floor(elements: int) -> tuple[float, dict]:
+    """K7's hash floor in ms for ``elements`` hidden elements, from the
+    library this run built: the counter hash's integer instructions per
+    element on the busier of the two integer pipes (IMAD on the FMA pipe,
+    the rest on the ALU pipe; scripts/seg_head_sass.py counts them in the
+    SASS), at 64 lanes per SM per clock, the card's SMs and its boost clock
+    (``nvidia-smi clocks.max.sm``). Returns it with the per-pipe counts,
+    the SMs and the clock."""
+    import importlib.util
+    import torch
+    from awsegbench_torch import _build
+    spec = importlib.util.spec_from_file_location(
+        'seg_head_sass', ROOT / 'scripts' / 'seg_head_sass.py')
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    counts = sass.hash_counts(_build._build('seg_head_train'))
+    mhz = float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sass.INT_LANES_PER_SM_CLOCK * sms * mhz * 1e6
+    print(f'--- K7 dropout SASS ---\n{json.dumps(counts)}', file=sys.stderr)
+    per_pipe = counts['int_ops_per_element']
+    return (elements * max(per_pipe.values()) / rate * 1e3,
+            dict(per_pipe, sms=sms, boost_mhz=mhz))
+
+
+def seg_core_inputs(randn, shape, nc, dt):
+    """P [b, h, w, 9, C] and wp [C, nc] in ``dt``; a1, c1, bp in f32."""
+    cc = shape[-1]
+    return ((randn(*shape) * 0.5).to(dt), 1.0 + 0.1 * randn(cc),
+            0.1 * randn(cc), (randn(cc, nc) / 16).to(dt), 0.1 * randn(nc))
+
+
+def check_nc_limit(fn, randn, *extra):
+    """The seg-head wrapper ``fn`` raises, before any launch, for a CUDA
+    tensor with one class more than the kernels take (``NC_MAX``)."""
+    import torch
+    from awsegbench_torch.ops.headkernels import NC_MAX
+    args = seg_core_inputs(randn, (1, 2, 2, 9, 16), NC_MAX + 1,
+                           torch.bfloat16)
+    try:
+        fn(*args, *extra)
+    except ValueError as e:
+        if f'1 to {NC_MAX} classes' in str(e):
+            return
+        raise
+    raise AssertionError(f'{fn.__name__} took {NC_MAX + 1} classes')
+
+
+def seg_bounds(b, h, w, c, nc, r):
+    """(bound ms, what bounds it, the kron design's operation bound ms) of
+    the seg-head forward at P [b, h, w, 9, C] → [b, h·r, w·r, nc] in bf16:
+    the factorised passes' operations or the bytes (P and wp read, the
+    logits written), and the kron GEMM with K = 96 and 8·⌈nc/8⌉ classes."""
+    pix = b * h * r * w * r
+    flops = pix * (2 * 9 * 9 * c / r + 2 * 9 * c + 2 * c * nc)
+    nbytes = b * h * w * 9 * c * 2 + c * nc * 2 + pix * nc * 2
+    kron = pix * 2 * (96 * c + c * 8 * -(-nc // 8))
+    return (*bound(flops, nbytes, BF16_PEAK), kron / BF16_PEAK * 1e3)
+
+
 def phase_kernels(dev):
     """K1–K3 against their plain versions; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
-    from awsegbench_torch.ops import attention, headkernels, splat
+    from awsegbench_torch.ops import attention, splat
     from awsegbench_torch.weather.corruption import draw_corruption
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -269,48 +351,7 @@ def phase_kernels(dev):
     for shape in ((3, 130, 70, 64), (2, 100, 33, 32)):
         check_k1(*shape)
 
-    # K2: the seg head core at f [b, H/32, W/32, 256] → [b, H, W, 19]
-    h, w, c, nc, r = H // 32, W // 32, 256, 19, 32
-
-    def seg_inputs(b, dt):
-        P = (randn(b, h, w, 9, c) * 0.5).to(dt)
-        return (P, 1.0 + 0.1 * randn(c), 0.1 * randn(c),
-                (randn(c, nc) / 16).to(dt), 0.1 * randn(nc))
-
-    errs = {}
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 6e-2)):
-        args = seg_inputs(2, dt)
-        got = headkernels.seg_core(*args, r)
-        want = headkernels.seg_core_plain(*args, r)
-        torch.cuda.synchronize()
-        if got.shape != (2, h * r, w * r, nc):
-            raise AssertionError(f'seg_core shape {tuple(got.shape)}')
-        check_close(f'seg_core {dt}', got, want, tol)
-        errs[str(dt)] = max_err(got, want)
-    for shape, rr in (((1, 3, 5, 9, 32), 32), ((2, 2, 3, 9, 48), 8)):
-        Pq = randn(*shape) * 0.5           # off the main path's shapes
-        cq = shape[-1]
-        small = (Pq, 1.0 + 0.1 * randn(cq), 0.1 * randn(cq),
-                 randn(cq, nc) / 16, 0.1 * randn(nc))
-        check_close(f'seg_core f32 {shape} r{rr}',
-                    headkernels.seg_core(*small, rr),
-                    headkernels.seg_core_plain(*small, rr), 1e-4)
-    args = seg_inputs(B, torch.bfloat16)           # the main path's batch
-    check_close('seg_core bf16 b8', headkernels.seg_core(*args, r),
-                headkernels.seg_core_plain(*args, r), 6e-2)
-    pix = B * h * r * w * r
-    flops = pix * (2 * 9 * 9 * c / r + 2 * 9 * c + 2 * c * nc)
-    nbytes = args[0].numel() * 2 + c * nc * 2 + pix * nc * 2
-    bms, by = bound(flops, nbytes, BF16_PEAK)
-    recs['seg_core'] = dict(
-        name='seg_core', route='cuda', source='awsegbench_torch/csrc/seg_head.cu',
-        replaces='awsegbench/ops/headkernels.py:156',
-        max_abs_err=errs[str(torch.bfloat16)],
-        ms=time_ms(lambda: headkernels.seg_core(*args, r)),
-        plain_ms=time_ms(lambda: headkernels.seg_core_plain(*args, r), reps=3,
-                         warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err_f32=errs[str(torch.float32)], gflop=flops / 1e9)
+    recs['seg_core'] = seg_head_kernel(dev, g)
 
     # K3: 8 mixed rain/snow images at 512×1024 with full drop counts
     wid = torch.tensor([2, 3] * (B // 2), device=dev)
@@ -348,6 +389,50 @@ def phase_kernels(dev):
         bound_ms=bms, bound_by=by, library_ms=None,
         covered=float(got.mean()))
     return recs
+
+
+def seg_head_kernel(dev, g):
+    """K2, the seg head core at f [b, H/32, W/32, 256] → [b, H, W, 19], in
+    both designs against its plain version, at the path's shapes and at
+    SEG_RAGGED (SEG_TOLS); returns its record."""
+    import torch
+    from awsegbench_torch.ops import headkernels
+
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    h, w, c, nc, r = H // 32, W // 32, 256, 19, 32
+    errs = dict.fromkeys(SEG_TOLS, 0.0)
+    for name, tol in SEG_TOLS.items():
+        dt = getattr(torch, name)
+        for shape, rr, ncc in (((2, h, w, 9, c), r, nc),) + SEG_RAGGED:
+            args = seg_core_inputs(randn, shape, ncc, dt)
+            got = headkernels.seg_core(*args, rr)
+            want = headkernels.seg_core_plain(*args, rr)
+            torch.cuda.synchronize()
+            if got.shape != (shape[0], shape[1] * rr, shape[2] * rr, ncc):
+                raise AssertionError(f'seg_core shape {tuple(got.shape)}')
+            check_close(f'seg_core {name} {shape} r{rr} nc{ncc}', got, want,
+                        tol)
+            errs[name] = max(errs[name], max_err(got, want))
+    check_nc_limit(headkernels.seg_core, randn, r)
+    args = seg_core_inputs(randn, (B, h, w, 9, c), nc, torch.bfloat16)
+    check_close('seg_core bf16 b8', headkernels.seg_core(*args, r),
+                headkernels.seg_core_plain(*args, r), SEG_TOLS['bfloat16'])
+    bms, by, kron_ms = seg_bounds(B, h, w, c, nc, r)
+    rec = dict(
+        name='seg_core', route='cuda', source='awsegbench_torch/csrc/seg_head.cu',
+        replaces='awsegbench/ops/headkernels.py:156',
+        max_abs_err=errs['bfloat16'],
+        ms=time_ms(lambda: headkernels.seg_core(*args, r)),
+        plain_ms=time_ms(lambda: headkernels.seg_core_plain(*args, r), reps=3,
+                         warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err_f32=errs['float32'], design=SEG_DESIGNS,
+        device_ms=device_ms(lambda: headkernels.seg_core(*args, r),
+                            ('seg_head_mma',)),
+        kron_bound_ms=kron_ms)
+    del args
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_main_path(dev):
@@ -475,11 +560,10 @@ def phase_parity(dev):
 
 
 def phase_train_kernels(dev):
-    """K6–K8 against their plain versions; returns the kernels' records."""
+    """K6–K10 against their plain versions; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
     from awsegbench_torch.ops import attention
-    from awsegbench_torch.ops import headkernels_train as ht
 
     g = torch.Generator(device=dev).manual_seed(3)
     randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
@@ -571,34 +655,45 @@ def phase_train_kernels(dev):
         # one exponential per score
         exp_bound_ms=3 * scores / EX2_RATE * 1e3, scores=scores)
 
-    # K7 / K8: the train seg head core at f [b, H/32, W/32, 256]
+    torch.cuda.empty_cache()
+    recs.update(seg_train_kernels(dev, g))
+    recs.update(depth_kernels(dev, g))
+    return recs
+
+
+def seg_train_kernels(dev, g):
+    """K7 (both designs) and K8 (the train seg head's core, K8 also through
+    the Function's backward) against their plain versions at the path's
+    P [b, 16, 32, 9, 256], r = 32, nc = 19, and at SEG_RAGGED; K7 as K2 is
+    held (SEG_TOLS). K8 through the Function's backward (dP incl. the plain
+    scatter, da1, dc1, dwp, dbp) against autograd through K7's plain
+    version, which forms fine as both kernels do (the bf16 kron table in
+    bf16): f32 at rtol 2e-3 of each gradient's scale, bf16 within 6e-2 of it
+    (the plain version rounds dv and dfine to bf16 where autograd casts, K8
+    keeps them f32 until the TPU kernel's own roundings)."""
+    import torch
+    from awsegbench_torch.ops import headkernels_train as ht
+
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
     h, w, c, nc, r, rate = H // 32, W // 32, 256, 19, 32, 0.1
     seed = torch.tensor(-123456789, dtype=torch.int32, device=dev)
 
-    def core_inputs(shape, dt):
-        cc = shape[-1]
-        return (randn(*shape).mul(0.5).to(dt), 1.0 + 0.1 * randn(cc),
-                0.1 * randn(cc), (randn(cc, nc) / 16).to(dt), 0.1 * randn(nc))
-
-    def check_k7(shape, rr, dt, tol):
-        args = core_inputs(shape, dt)
-        got = ht.seg_core_train(*args, seed, rate, rr)
-        want = ht.seg_core_train_plain(*args, seed, rate, rr)
+    def check_k7(shape, rr, ncc, name, rt=rate):
+        args = seg_core_inputs(randn, shape, ncc, getattr(torch, name))
+        got = ht.seg_core_train(*args, seed, rt, rr)
+        want = ht.seg_core_train_plain(*args, seed, rt, rr)
         torch.cuda.synchronize()
         b_, h_, w_ = shape[:3]
-        if got.shape != (b_, h_ * rr, w_ * rr, nc):
+        if got.shape != (b_, h_ * rr, w_ * rr, ncc):
             raise AssertionError(f'seg_core_train shape {tuple(got.shape)}')
-        check_close(f'seg_core_train {dt} {shape} r{rr}', got, want, tol)
+        check_close(f'seg_core_train {name} {shape} r{rr} nc{ncc}', got, want,
+                    SEG_TOLS[name])
         return args, max_err(got, want)
 
-    # K8 through the Function's backward (dP incl. the plain scatter, da1,
-    # dc1, dwp, dbp) against plain autograd: f32 at rtol 2e-3 of each
-    # gradient's scale; bf16 within 6e-2 of it (the plain version rounds
-    # dv and dfine to bf16 where autograd casts, K8 keeps them f32 until the
-    # TPU kernel's own roundings).
-    def check_k8(args, rr, dt, tol):
+    def check_k8(args, rr, name):
         b_, h_, w_ = args[0].shape[:3]
-        dy = randn(b_, h_ * rr, w_ * rr, nc).mul(0.1).to(dt)
+        dt, ncc = getattr(torch, name), args[3].shape[1]
+        dy = randn(b_, h_ * rr, w_ * rr, ncc).mul(0.1).to(dt)
         ins = [t.detach().requires_grad_() for t in args]
         got = torch.autograd.grad(ht.seg_core_train(*ins, seed, rate, rr),
                                   ins, dy)
@@ -606,61 +701,69 @@ def phase_train_kernels(dev):
         want = torch.autograd.grad(ht.seg_core_train_plain(*ins2, seed, rate,
                                                            rr), ins2, dy)
         torch.cuda.synchronize()
-        return max(check_scaled(f'seg_core_train grad {name} {dt} '
-                                f'{tuple(args[0].shape)} r{rr}', a, b, tol)
-                   for name, a, b in zip(('P', 'a1', 'c1', 'wp', 'bp'),
+        tol = 2e-3 if dt == torch.float32 else 6e-2
+        return max(check_scaled(f'seg_core_train grad {grad} {name} '
+                                f'{tuple(args[0].shape)} r{rr} nc{ncc}', a, b,
+                                tol)
+                   for grad, a, b in zip(('P', 'a1', 'c1', 'wp', 'bp'),
                                          got, want))
 
-    errs7, errs8 = {}, {}
-    for dt, tol7, tol8 in ((torch.float32, 1e-4, 2e-3),
-                           (torch.bfloat16, 6e-2, 6e-2)):
-        args, errs7[dt] = check_k7((2, h, w, 9, c), r, dt, tol7)
-        errs8[dt] = check_k8(args, r, dt, tol8)
-    for shape, rr in (((1, 3, 5, 9, 32), 32), ((2, 2, 3, 9, 48), 8)):
-        args, _ = check_k7(shape, rr, torch.float32, 1e-4)
-        check_k8(args, rr, torch.float32, 2e-3)
-    args, e = check_k7((B, h, w, 9, c), r, torch.bfloat16, 6e-2)   # batch 8
-    errs7[torch.bfloat16] = max(errs7[torch.bfloat16], e)
+    errs7, errs8 = dict.fromkeys(SEG_TOLS, 0.0), dict.fromkeys(SEG_TOLS, 0.0)
+    for name in SEG_TOLS:
+        for shape, rr, ncc in (((2, h, w, 9, c), r, nc),) + SEG_RAGGED:
+            args, e = check_k7(shape, rr, ncc, name)
+            errs7[name] = max(errs7[name], e)
+            errs8[name] = max(errs8[name], check_k8(args, rr, name))
+    check_nc_limit(ht.seg_core_train, randn, seed, rate, r)
+    # without dropout: K7's other instantiation, in a process where K2 ran
+    check_k7((2, h, w, 9, c), r, nc, 'bfloat16', 0.0)
+    args, e = check_k7((B, h, w, 9, c), r, nc, 'bfloat16')   # batch 8
+    errs7['bfloat16'] = max(errs7['bfloat16'], e)
     dy = (randn(B, h * r, w * r, nc) * 0.1).bfloat16()
     got = ht.seg_core_train_backward(*args, seed, dy, rate, r)
     want = ht.seg_core_train_backward_plain(*args, seed, dy, rate, r)
     torch.cuda.synchronize()
-    errs8[torch.bfloat16] = max(errs8[torch.bfloat16], *(
+    errs8['bfloat16'] = max(errs8['bfloat16'], *(
         check_scaled(f'seg_core_train_backward {name} bf16 b8', a, b, 6e-2)
         for name, a, b in zip(('dpp', 'da1', 'dc1', 'dwp', 'dbp'), got, want)))
     del got, want
 
-    pix = B * h * r * w * r
-    flops7 = pix * (2 * 9 * 9 * c / r + 2 * 9 * c + 2 * c * nc)
-    p_bytes = args[0].numel() * 2
-    bms, by = bound(flops7, p_bytes + c * nc * 2 + pix * nc * 2, BF16_PEAK)
+    recs = {}
+    bms, by, kron_ms = seg_bounds(B, h, w, c, nc, r)
+    # the hash on every element of the full-resolution hidden
+    hash_ms, hash_ops = hash_floor(B * H * W * c)
     recs['seg_core_train'] = dict(
         name='seg_core_train', route='cuda',
         source='awsegbench_torch/csrc/seg_head_train.cu',
         replaces='awsegbench/ops/headkernels_train.py:317',
-        max_abs_err=errs7[torch.bfloat16],
+        max_abs_err=errs7['bfloat16'],
         ms=time_ms(lambda: ht.seg_core_train(*args, seed, rate, r)),
         plain_ms=time_ms(lambda: ht.seg_core_train_plain(*args, seed, rate, r),
                          reps=3, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err_f32=errs7[torch.float32], gflop=flops7 / 1e9)
+        max_abs_err_f32=errs7['float32'], design=SEG_DESIGNS,
+        device_ms=device_ms(lambda: ht.seg_core_train(*args, seed, rate, r),
+                            ('seg_head_mma',)),
+        kron_bound_ms=kron_ms, hash_bound_ms=hash_ms, hash_ops=hash_ops)
+    pix = B * h * r * w * r
+    flops7 = pix * (2 * 9 * 9 * c / r + 2 * 9 * c + 2 * c * nc)
+    p_bytes = args[0].numel() * 2
     bms, by = bound(2 * flops7, p_bytes + pix * nc * 2 + 9 * p_bytes
                     + (2 * c + c * nc + nc) * 4, BF16_PEAK)
     recs['seg_core_train_backward'] = dict(
         name='seg_core_train_backward', route='cuda',
         source='awsegbench_torch/csrc/seg_head_train.cu',
         replaces='awsegbench/ops/headkernels_train.py:349',
-        max_abs_err=errs8[torch.bfloat16],
+        max_abs_err=errs8['bfloat16'],
         ms=time_ms(lambda: ht.seg_core_train_backward(*args, seed, dy, rate,
                                                       r)),
         plain_ms=time_ms(lambda: ht.seg_core_train_backward_plain(
             *args, seed, dy, rate, r), reps=3, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err_f32=errs8[torch.float32],
+        max_abs_err_f32=errs8['float32'],
         err_is='relative to each gradient\'s scale', gflop=2 * flops7 / 1e9)
     del args, dy
     torch.cuda.empty_cache()
-    recs.update(depth_kernels(dev, g))
     return recs
 
 
@@ -766,7 +869,8 @@ def depth_kernels(dev, g):
 
 EVAL_COUNTERS = ('sr_attention', 'seg_core', 'splat_coverage_batched')
 # The attention wrappers' designs, by the dtype they take (ops/attention.py);
-# the paths run bf16, so their launches must go through 'mma_bf16'.
+# the paths run bf16, so their launches (and K2's and K7's) must all go
+# through 'mma_bf16'.
 ATTENTION_DESIGNS = {'bfloat16': 'mma_bf16', 'float32': 'simt_f32'}
 TRAIN_COUNTERS = ('sr_attention', 'splat_coverage_batched',
                   'sr_attention_backward', 'seg_core_train',
@@ -792,8 +896,9 @@ def run_counted(run, needed, what):
     """Every launch counter (and per-design count) set to 0, ``run()``, the
     counts read after it (all of them, by name; the per-design ones as
     ``<name>.by_design``); raises if a kernel in ``needed`` never launched,
-    or if a needed attention wrapper launched its bf16 design ('mma_bf16')
-    no time."""
+    or if a needed wrapper with two designs (K1, K6, K2, K7) launched its
+    bf16 design ('mma_bf16') no time or its f32 design at all: the paths
+    run in bf16."""
     import torch
     fns = counters()
     torch.cuda.synchronize()
@@ -807,9 +912,10 @@ def run_counted(run, needed, what):
     launches.update({f'{name}.by_design': dict(fn.launches_by_design)
                      for name, fn in fns.items()
                      if hasattr(fn, 'launches_by_design')})
+    designs = [launches[f'{k}.by_design'] for k in needed
+               if f'{k}.by_design' in launches]
     if min(launches[k] for k in needed) <= 0 or any(
-            launches[f'{k}.by_design']['mma_bf16'] <= 0 for k in needed
-            if f'{k}.by_design' in launches):
+            by['mma_bf16'] <= 0 or by['simt_f32'] != 0 for by in designs):
         raise AssertionError(f'a kernel of the {what} path never launched: '
                              f'{launches}')
     return out, launches
@@ -1143,6 +1249,10 @@ def main() -> int:
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    # K1, K6: the exponential floor, device times (theirs and SDPA's); K2,
+    # K7: device time and the kron design's bound, K7 its hash floor
+    extra = ('design', 'device_ms', 'library_device_ms', 'exp_bound_ms',
+             'kron_bound_ms', 'hash_bound_ms', 'hash_ops')
     paths = {'eval': eval_launches, 'train': train_launches,
              'single_image': single_launches}
     summary = []
@@ -1153,13 +1263,10 @@ def main() -> int:
             line = dict({k: rec.get(k) for k in keys},
                         launches_by_path={p: c[name]
                                           for p, c in paths.items()})
+            line.update({k: rec[k] for k in extra if k in rec})
             if 'design' in rec:
-                line.update(
-                    design=rec['design'], exp_bound_ms=rec['exp_bound_ms'],
-                    device_ms=rec['device_ms'],
-                    library_device_ms=rec['library_device_ms'],
-                    launches_by_design_by_path={
-                        p: c[f'{name}.by_design'] for p, c in paths.items()})
+                line['launches_by_design_by_path'] = {
+                    p: c[f'{name}.by_design'] for p, c in paths.items()}
             summary.append(line)
     if len(summary) != 10:
         raise AssertionError(f'{len(summary)} kernels in the summary, not 10')

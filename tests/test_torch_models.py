@@ -18,7 +18,7 @@ from awsegbench.models import ensemble as jensemble
 from awsegbench.models import factory as jfactory
 from awsegbench.models import segformer as jsegformer
 from awsegbench_torch.convert import flax_to_torch
-from awsegbench_torch.models import count_parameters, create_model
+from awsegbench_torch.models import count_parameters, create_model, segformer
 from awsegbench_torch.models.deeplab import DeepLabV3PlusModel
 from awsegbench_torch.models.ensemble import EnsembleModel
 from awsegbench_torch.models.segformer import MiTEncoder, SegFormerModel
@@ -226,6 +226,51 @@ def test_create_model_needs_a_card_unless_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             create_model(cfg)
+
+
+UNKNOWN_ID = 'my-org/weather-model'
+
+
+@pytest.mark.parametrize('name,default', [
+    ('b2', None), (' B4', None),
+    ('nvidia/segformer-b1-finetuned-ade-512-512', None), ('nvidia/mit-b3', None),
+    ('nvidia/segformer-b5-finetuned-cityscapes-1024-1024', 'b0'),
+    (UNKNOWN_ID, 'b0'), (UNKNOWN_ID, None)])
+def test_mit_variant_name_matches_jax(name, default, caplog):
+    """The port's copy of ``mit_variant_name`` gives JAX's answer: an id
+    that names no variant raises, or falls back to ``default`` with a
+    warning."""
+    if name == UNKNOWN_ID and default is None:
+        for fn in (segformer.mit_variant_name, jsegformer.mit_variant_name):
+            with pytest.raises(ValueError, match='unknown MiT variant'):
+                fn(name)
+        return
+    with caplog.at_level('WARNING'):
+        got = segformer.mit_variant_name(name, default)
+    assert got == jsegformer.mit_variant_name(name, default)
+    warned = any('names no MiT variant' in r.getMessage()
+                 for r in caplog.records)
+    assert warned == (name == UNKNOWN_ID)
+    assert segformer.mit_variant_config(name, default) == \
+        jsegformer.mit_variant_config(name, default)
+
+
+@pytest.mark.parametrize('cfg,variant', [
+    ({'model_name': 'nvidia/segformer-b1-finetuned-ade-512-512'}, 'b1'),
+    ({'model_name': UNKNOWN_ID}, 'b0'),
+    ({'model_name': 'nvidia/mit-b3', 'segformer_variant': 'b1'}, 'b1')])
+def test_create_model_reads_model_name(cfg, variant):
+    """A Hugging Face id under ``model_name`` picks the variant, as JAX's
+    ``create_model`` does; ``segformer_variant`` wins over it."""
+    cfg = {'type': 'segformer', 'num_classes': 5, 'include_depth': False,
+           **cfg}
+    enc = create_model(cfg, device='cpu').MiTEncoder_0
+    sizes = tuple(getattr(enc, f'LayerNorm_{i}').normalized_shape[0]
+                  for i in range(4))
+    assert (sizes, enc.depths) == segformer.MIT_VARIANTS[variant]
+    jmodel = jfactory.create_model({'model': cfg})
+    assert (tuple(jmodel.hidden_sizes), tuple(jmodel.depths)) == \
+        segformer.MIT_VARIANTS[variant]
 
 
 def test_create_model_rejects_unfused_upsample():
