@@ -19,39 +19,49 @@
 // multiplies, logical shifts). The backward regenerates it; nothing is
 // stored.
 //
-// Forward (d1_fwd): one block per coarse cell. The block walks C in
-// 32-channel slices: it gathers the cell's pp slice, runs the y-pass into
-// shared memory with [r, 9] tables, then each warp takes every 8th fine
-// column q (its Ax rows in registers) and each lane one channel, so a warp
-// stores 32 neighbouring channels of one pixel.
+// Two designs each, chosen by the dtype (ops/depthkernels_train.py), as
+// the seg head's:
+// - 'mma_bf16': K9 is the seg head's forward body (seg_head_mma.cuh) with
+//   its hidden epilogue: one mma.sync GEMM against the bf16 kron table (the
+//   TPU kernel's own operands), the affine, ReLU and hash dropout in
+//   registers, d1 stored in bf16 where K7 applies its 1×1. K10 is the seg
+//   head's backward body (seg_bwd_mma.cuh) without the 1×1: it recomputes
+//   fine with the forward's own fine_tile, so the ReLU and the mask decide
+//   as K9 did, and runs the phase transpose dpp = kronᵀ·bf16(dfine) on the
+//   tensor cores, 16 channels a warp.
+// - 'simt_f32': the exact two 9-tap passes on the CUDA cores.
+//   Forward (d1_fwd): one block per coarse cell. The block walks C in
+//   32-channel slices: it gathers the cell's pp slice, runs the y-pass into
+//   shared memory with [r, 9] tables, then each warp takes every 8th fine
+//   column q (its Ax rows in registers) and each lane one channel, so a
+//   warp stores 32 neighbouring channels of one pixel.
+//   Backward (d1_bwd): one block per coarse cell, one thread per channel
+//   (128 on the main path). A thread recomputes its channel's r×r fine
+//   values and mask and accumulates in registers everything that sums over
+//   the cell's pixels: da1 = Σ dz·fine, dc1 = Σ dz and the phase-table
+//   transpose dpp[:, c] (81 values), where dz = [z > 0]·mask·dd1. The block
+//   stages one fine row of dd1 (r pixels × 128 channels) at a time in
+//   shared memory, read with neighbouring threads on neighbouring channels.
+// The TPU kernel added da1/dc1 into one block that its in-order grid
+// revisited; here each block writes its partial row and d1_reduce adds the
+// rows in block order (deterministic, no float atomics). dpp [B, h, w, 81,
+// C] goes to device memory; pp_adjoint.cu scatters it back to P.
 //
-// Backward (d1_bwd): one block per coarse cell, one thread per channel (128
-// on the main path). A thread recomputes its channel's r×r fine values and
-// mask and accumulates in registers everything that sums over the cell's
-// pixels: da1 = Σ dz·fine, dc1 = Σ dz and the phase-table transpose dpp[:, c]
-// (81 values), where dz = [z > 0]·mask·dd1. The block stages one fine row of
-// dd1 (r pixels × 128 channels) at a time in shared memory, read with
-// neighbouring threads on neighbouring channels. The TPU kernel added
-// da1/dc1 into one block that its in-order grid revisited; here each block
-// writes its partial row and d1_reduce adds the rows in block order
-// (deterministic, no float atomics). dpp [B, h, w, 81, C] goes to device
-// memory; its scatter back to P is plain PyTorch.
-//
-// Rounding follows the TPU kernels: bf16 mode reads P and dd1 as bf16 and
-// stores d1 and dpp as bf16, with f32 arithmetic between; dfine = dz·a1 is
-// rounded to bf16 before the phase transpose. As in K2 and K7, the kron
-// table's bf16 products cannot be rounded inside two passes.
+// Rounding follows the TPU kernels: bf16 mode reads P and dd1 as bf16,
+// multiplies the bf16 kron table, and stores d1 and dpp as bf16, with f32
+// sums between; dfine = dz·a1 is rounded to bf16 before the transpose.
 //
 // Bound on the H100 (B = 8, 512×1024, C = 128): the forward writes d1,
-// 1.07 GB in bf16 (0.32 ms at 3.35 TB/s) for about 12 GFLOP of phase passes;
-// the backward reads dd1 (1.07 GB) and writes dpp (85 MB), about 0.35 ms.
-// Both are bound by bytes. This first version runs on the CUDA cores in
-// f32 and hashes every element (about 20 integer operations each), which
-// likely makes it compute-limited above that bound; later work.
+// 1.07 GB in bf16 (0.32 ms at 3.35 TB/s) for about 12 GFLOP of phase passes
+// (103 GFLOP as the kron GEMM); the backward reads dd1 (1.07 GB) and writes
+// dpp (85 MB), about 0.35 ms. Both are bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "seg_bwd_mma.cuh"
+#include "seg_head_mma.cuh"
 
 namespace {
 
@@ -62,17 +72,8 @@ constexpr int kQ = kRMax / 8;  // fine columns per warp (forward)
 constexpr int kCB = 128;       // channels per group (backward: one per thread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
@@ -341,7 +342,8 @@ bool shapes_ok(int r, int C) { return r >= 1 && r <= kRMax && C >= 1; }
 }  // namespace
 
 // Forward: P [B, h, w, 9, C] in f32 or bf16; ay, ax [r, 9], a1, c1 [C] f32;
-// seed int32 [1] on the device; out d1 [B, h·r, w·r, C] in P's dtype.
+// seed int32 [1] on the device; out d1 [B, h·r, w·r, C] in P's dtype. bf16
+// needs C % 16 == 0 and 16-byte aligned P and out.
 extern "C" int d1_fwd_launch(const void* P, const void* ay, const void* ax,
                              const void* a1, const void* c1, const void* seed,
                              unsigned thresh, float inv_keep, int drop,
@@ -350,10 +352,15 @@ extern "C" int d1_fwd_launch(const void* P, const void* ay, const void* ax,
   if (!shapes_ok(r, C)) return (int)cudaErrorInvalidValue;
   const float *fay = (const float*)ay, *fax = (const float*)ax;
   const float *fa1 = (const float*)a1, *fc1 = (const float*)c1;
-  if (is_bf16)
-    return fwd_typed<__nv_bfloat16>(P, fay, fax, fa1, fc1, (const int*)seed,
-                                    thresh, inv_keep, drop, out, B, h, w, C,
-                                    r, (cudaStream_t)stream);
+  if (is_bf16) {
+    const seg_mma::Params prm{
+        (const seg_mma::bf16*)P, fay, fax, fa1, fc1, nullptr, nullptr,
+        (const int*)seed, thresh, inv_keep, (seg_mma::bf16*)out, h, w, C, r,
+        0};
+    const cudaStream_t s = (cudaStream_t)stream;
+    return (int)(drop ? seg_mma::launch_hidden<true>(prm, B, s)
+                      : seg_mma::launch_hidden<false>(prm, B, s));
+  }
   return fwd_typed<float>(P, fay, fax, fa1, fc1, (const int*)seed, thresh,
                           inv_keep, drop, out, B, h, w, C, r,
                           (cudaStream_t)stream);
@@ -361,21 +368,29 @@ extern "C" int d1_fwd_launch(const void* P, const void* ay, const void* ax,
 
 // Backward: + dd1 [B, h·r, w·r, C] in P's dtype; writes dpp [B, h, w, 81, C]
 // in P's dtype and sums [2C] f32 = (da1 | dc1); part is f32 scratch
-// [B·h·w, 2C].
+// [B·h·w, 2C]. bf16 also takes kron, the [r², 96] bf16 kron table (unused
+// in f32), and needs C % 16 == 0 and 16-byte aligned P, dd1, dpp, kron.
 extern "C" int d1_bwd_launch(const void* P, const void* ay, const void* ax,
                              const void* a1, const void* c1, const void* dd1,
                              const void* seed, unsigned thresh,
                              float inv_keep, int drop, void* dpp, void* part,
-                             void* sums, int B, int h, int w, int C, int r,
-                             int is_bf16, void* stream) {
+                             void* sums, const void* kron, int B, int h,
+                             int w, int C, int r, int is_bf16, void* stream) {
   if (!shapes_ok(r, C)) return (int)cudaErrorInvalidValue;
   const float *fay = (const float*)ay, *fax = (const float*)ax;
   const float *fa1 = (const float*)a1, *fc1 = (const float*)c1;
-  if (is_bf16)
-    return bwd_typed<__nv_bfloat16>(P, fay, fax, fa1, fc1, dd1,
-                                    (const int*)seed, thresh, inv_keep, drop,
-                                    dpp, (float*)part, (float*)sums, B, h, w,
-                                    C, r, (cudaStream_t)stream);
+  if (is_bf16) {
+    const seg_bwd::Params prm{
+        (const seg_mma::bf16*)P, (const seg_mma::bf16*)kron, fa1, fc1,
+        nullptr, (const seg_mma::bf16*)dd1, (const int*)seed, thresh,
+        inv_keep, (seg_mma::bf16*)dpp, (float*)part, h, w, C, r, 0};
+    int rc = (int)seg_bwd::launch<false>(prm, B, drop != 0,
+                                         (cudaStream_t)stream);
+    if (rc) return rc;
+    d1_reduce<<<(2 * C + 31) / 32, 256, 0, (cudaStream_t)stream>>>(
+        (const float*)part, (float*)sums, B * h * w, 2 * C);
+    return (int)cudaGetLastError();
+  }
   return bwd_typed<float>(P, fay, fax, fa1, fc1, dd1, (const int*)seed, thresh,
                           inv_keep, drop, dpp, (float*)part, (float*)sums, B,
                           h, w, C, r, (cudaStream_t)stream);

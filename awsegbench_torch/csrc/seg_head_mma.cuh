@@ -1,6 +1,10 @@
-// The bf16 tensor-core body ('mma_bf16') of the faithful seg head's
-// forward, shared by K2 (seg_head.cu, eval mode) and K7 (seg_head_train.cu,
-// train mode: batch-statistic affine and counter-hash dropout).
+// The bf16 tensor-core body ('mma_bf16') of the faithful heads' forward,
+// shared by K2 (seg_head.cu, eval mode), K7 (seg_head_train.cu, train mode:
+// batch-statistic affine and counter-hash dropout) and K9
+// (depth_stage1_train.cu: K7 without the 1×1, storing the post-dropout
+// hidden d1 in bf16; kHidden). Its fine_tile, affine and keeps are also
+// the backward body's (seg_bwd_mma.cuh), so K8 and K10 recompute fine and
+// take the ReLU and dropout decisions as K7 and K9 did.
 //
 // Per coarse cell (b, i, j) it computes what the TPU kernels compute
 // (awsegbench/ops/headkernels.py::_seg_kernel, headkernels_train.py::
@@ -122,7 +126,50 @@ __device__ __forceinline__ float kron(const float* ayp, const float* axq,
   return k < 81 ? ayp[k / 9] * axq[k % 9] : 0.f;
 }
 
-template <int NT, bool kDrop>
+// z = fine·a + c, the batch-stat (or eval) affine, as every bf16 body forms
+// it: K7's ReLU and K8's/K10's z > 0 decide on this one expression.
+__device__ __forceinline__ float affine(float fine, float a, float c) {
+  return fine * a + c;
+}
+
+// The counter hash's keep bit of hidden element idx (K7, K8, K9, K10).
+__device__ __forceinline__ bool keeps(uint32_t idx, uint32_t bseed,
+                                      uint32_t thresh) {
+  return mix32(idx ^ bseed) >= thresh;
+}
+
+// The phase product of one 16-channel slice: fine[mt][nt] = the kron rows
+// of m-tile mt (A fragments af) · pp[:, c0 + 8nt ..], pp's B fragments read
+// from shared memory ([kK][stride] bf16) by ldmatrix, the six k-steps in
+// order. K7, K9 and the backward body (seg_bwd_mma.cuh) all form fine
+// here, so with the same A fragments they get the same f32 sums.
+template <int MT>
+__device__ __forceinline__ void fine_tile(float (&fine)[MT][2][4],
+                                          const uint32_t (&af)[MT][kK / 16][4],
+                                          const bf16* pp_s, int stride,
+                                          int c0, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      fine[mt][nt][0] = fine[mt][nt][1] = fine[mt][nt][2] = fine[mt][nt][3] =
+          0.f;
+#pragma unroll
+  for (int ks = 0; ks < kK / 16; ++ks) {
+    uint32_t bfr[4];  // pp rows 16ks.., channels c0..c0+7 and +8..+15
+    ldsm_x4_t(bfr, pp_s + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              stride + c0 + (lane >> 4) * 8);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma(fine[mt][0], af[mt][ks], bfr[0], bfr[1]);
+      mma(fine[mt][1], af[mt][ks], bfr[2], bfr[3]);
+    }
+  }
+}
+
+// kHidden (K9): no 1×1; the post-dropout hidden is stored in bf16 into
+// out [B, h·r, w·r, C] instead of the logits (NT is then unused).
+template <int NT, bool kDrop, bool kHidden = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Params prm) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float ay_s[kRMax][9], ax_s[kRMax][9];
@@ -155,11 +202,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
     *reinterpret_cast<uint4*>(pp_s + row * stride + cc * 8) =
         make_uint4(0, 0, 0, 0);
   }
-  for (int e = tid; e < 8 * NT * C; e += kThreads) {
-    const int n = e / C, k = e - n * C;
-    wp_s[n * stride + k] =
-        n < prm.nc ? prm.wp[(size_t)k * prm.nc + n] : __float2bfloat16(0.f);
-  }
+  if constexpr (!kHidden)
+    for (int e = tid; e < 8 * NT * C; e += kThreads) {
+      const int n = e / C, k = e - n * C;
+      wp_s[n * stride + k] =
+          n < prm.nc ? prm.wp[(size_t)k * prm.nc + n] : __float2bfloat16(0.f);
+    }
   for (int e = tid; e < C; e += kThreads) {
     a1_s[e] = prm.a1[e];
     c1_s[e] = prm.c1[e];
@@ -175,6 +223,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
 
   const int rr = r * r;
   const int W = prm.w * r;
+  // (K9) image b's first element of d1; base[][] + c is the rest
+  [[maybe_unused]] const size_t img = (size_t)b * prm.h * r * W * C;
 
 #pragma unroll 1
   for (int m0 = 32 * warp; m0 < rr; m0 += 32 * (kThreads / 32)) {
@@ -213,23 +263,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
 #pragma unroll 1
     for (int c0 = 0; c0 < C; c0 += 16) {
       float fine[2][2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          fine[mt][nt][0] = fine[mt][nt][1] = fine[mt][nt][2] =
-              fine[mt][nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kK / 16; ++ks) {
-        uint32_t bfr[4];  // pp rows 16ks.., channels c0..c0+7 and +8..+15
-        ldsm_x4_t(bfr, pp_s + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  stride + c0 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma(fine[mt][0], af[mt][ks], bfr[0], bfr[1]);
-          mma(fine[mt][1], af[mt][ks], bfr[2], bfr[3]);
-        }
-      }
+      fine_tile<2>(fine, af, pp_s, stride, c0, lane);
 
       // affine, ReLU, dropout; packed to bf16 they are the 1×1's A
       uint32_t ha[2][4];
@@ -242,18 +276,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            float u0 = fmaxf(fine[mt][nt][2 * hf] * sa.x + sc.x, 0.f);
-            float u1 = fmaxf(fine[mt][nt][2 * hf + 1] * sa.y + sc.y, 0.f);
+            float u0 = fmaxf(affine(fine[mt][nt][2 * hf], sa.x, sc.x), 0.f);
+            float u1 = fmaxf(affine(fine[mt][nt][2 * hf + 1], sa.y, sc.y),
+                             0.f);
+            const uint32_t idx = base[mt][hf] + (uint32_t)c;
             if constexpr (kDrop) {
-              const uint32_t idx = base[mt][hf] + (uint32_t)c;
-              u0 = mix32(idx ^ bseed) >= prm.thresh ? u0 * prm.inv_keep : 0.f;
-              u1 = mix32((idx + 1u) ^ bseed) >= prm.thresh ? u1 * prm.inv_keep
-                                                           : 0.f;
+              u0 = keeps(idx, bseed, prm.thresh) ? u0 * prm.inv_keep : 0.f;
+              u1 = keeps(idx + 1u, bseed, prm.thresh) ? u1 * prm.inv_keep
+                                                      : 0.f;
             }
             ha[mt][hf + 2 * nt] = pack_bf16(u0, u1);
+            if constexpr (kHidden) {  // K9: d1 at the pixel's channel c
+              if (m0 + 16 * mt + gr + 8 * hf < rr)
+                *reinterpret_cast<uint32_t*>(prm.out + img + idx) =
+                    ha[mt][hf + 2 * nt];
+            }
           }
       }
 
+      if constexpr (kHidden) continue;
       // the 1×1: B fragments of wp rows c0.., read from wpᵀ
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -265,6 +306,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
       }
     }
 
+    if constexpr (kHidden) continue;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -286,20 +328,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) seg_head_mma(const Param
   }
 }
 
-template <int NT, bool kDrop>
+template <int NT, bool kDrop, bool kHidden = false>
 cudaError_t launch_nt(const Params& prm, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(prm.C, NT);
+  const size_t smem = smem_bytes(prm.C, kHidden ? 0 : NT);
   // Above 48 KB a kernel must ask for its shared memory; asked once per
   // instantiation, not on every launch.
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seg_head_mma<NT, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        seg_head_mma<NT, kDrop, kHidden>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     granted = smem;
   }
-  seg_head_mma<NT, kDrop>
+  seg_head_mma<NT, kDrop, kHidden>
       <<<dim3(prm.w, prm.h, B), kThreads, smem, stream>>>(prm);
   return cudaGetLastError();
 }
@@ -317,6 +359,16 @@ cudaError_t launch(const Params& prm, int B, cudaStream_t stream) {
     case 3: return launch_nt<3, kDrop>(prm, B, stream);
     default: return launch_nt<4, kDrop>(prm, B, stream);
   }
+}
+
+// K9's body: the hidden into out [B, h·r, w·r, C] (wp, bp, nc unused), for
+// 1 ≤ r ≤ 32 and C % 16 == 0; P and out must be 16-byte aligned.
+template <bool kDrop>
+cudaError_t launch_hidden(const Params& prm, int B, cudaStream_t stream) {
+  if (prm.r < 1 || prm.r > kRMax || prm.C % 16 != 0 ||
+      ((uintptr_t)prm.P & 15) != 0 || ((uintptr_t)prm.out & 15) != 0)
+    return cudaErrorInvalidValue;
+  return launch_nt<1, kDrop, true>(prm, B, stream);
 }
 
 }  // namespace

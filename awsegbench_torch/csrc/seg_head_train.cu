@@ -34,43 +34,39 @@
 //   fine pixels' logits in registers.
 // Neither writes the full-resolution 256-channel hidden to device memory.
 //
-// Backward (K8, seg_train_bwd): one block per coarse cell, one thread per
-// channel (256 on the main path). A thread recomputes its channel's r×r
-// fine values and mask, and accumulates in registers everything that sums
-// over the cell's pixels for its channel: da1, dc1, dwp[c, :] and the
-// phase-table transpose dpp[:, c]. The output gradient tile (r²×nc) and the
-// cell's pp (81×256) sit in shared memory and are read by all threads
-// alike. The TPU kernel summed da1/dc1/dwp/dbp over a grid that ran in
-// order; here each block writes its partial sums and seg_train_reduce adds
-// the blocks' rows in block order (deterministic, no float atomics).
-// dpp [B, h, w, 81, C] goes to device memory; its scatter back to P (the
-// transpose of the neighbourhood gather) is plain PyTorch. K8 recomputes
-// fine as its forward formed it, so the ReLU and the mask decide as they
-// did there:
-// - f32: the two exact 9-tap passes (y-pass per fine row, x-pass per
-//   pixel), as the simt_f32 forward;
-// - bf16: the kron table rounded to bf16, as the mma_bf16 forward and the
-//   TPU kernel, on the CUDA cores; a pixel's kron row has 36 non-zero
-//   entries (bwd_kron), 36 products for fine and 36 for the transpose.
-//   Rounding as the TPU kernel: bf16 operands (P, wp, dy as given; the
-//   post-dropout hidden before the 1×1 and dwp; dfine before the phase
-//   transpose) with f32 sums.
+// Backward (K8), two designs chosen by the dtype, as the forward's:
+// - 'mma_bf16': seg_bwd_mma.cuh on the tensor cores. It recomputes fine
+//   with K7's own fine_tile against the bf16 kron table (so the ReLU and
+//   the mask decide as K7 did), then dv = dy·wpᵀ, dwp = vᵀ·dy and the phase
+//   transpose dpp = kronᵀ·bf16(dfine) as mma.sync products; 16 channels a
+//   warp, the cell's pixels 16 at a time. Rounding as the TPU kernel: bf16
+//   operands (P, wp, dy as given; the post-dropout hidden before dwp; dfine
+//   before the transpose) with f32 sums.
+// - 'simt_f32' (seg_train_bwd): one block per coarse cell, one thread per
+//   channel. A thread recomputes its channel's r×r fine values with the
+//   two exact 9-tap passes (as the simt_f32 forward) and its mask, and
+//   accumulates in registers everything that sums over the cell's pixels
+//   for its channel: da1, dc1, dwp[c, :] and the phase-table transpose
+//   dpp[:, c]. The output gradient tile (r²×nc) and the cell's pp (81×256)
+//   sit in shared memory and are read by all threads alike.
+// The TPU kernel summed da1/dc1/dwp/dbp over a grid that ran in order;
+// here each block writes its partial sums and seg_train_reduce adds the
+// blocks' rows in block order (deterministic, no float atomics). dpp
+// [B, h, w, 81, C] goes to device memory; pp_adjoint.cu scatters it back
+// to P (the transpose of the neighbourhood gather).
 //
 // Bound on the H100 (B = 8, 512×1024, C = 256, 19 classes): the forward is
 // about 15.6 kflop per output pixel factorised (65.6 GFLOP), 258 GFLOP as
 // the kron GEMM with K = 96 and 24 padded classes (0.26 ms at the bf16
 // tensor-core rate); the backward about 31 kflop per pixel factorised (the
-// recompute, dy·wpᵀ, vᵀ·dy, the transposed passes), 131 GFLOP, plus the
-// 170 MB dpp write in bf16. The backward runs on the CUDA cores with one
-// block of up to 219 KB per SM; tensor-core tiles (the kron products are
-// GEMMs there) and fusing the dpp scatter are its next step.
+// recompute, dy·wpᵀ, vᵀ·dy, the transposed passes), 131 GFLOP, about 530
+// GFLOP as the tensor-core products, plus the 170 MB dpp write in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
+#include "seg_bwd_mma.cuh"
 #include "seg_head_mma.cuh"
 
 namespace {
@@ -85,17 +81,8 @@ constexpr int kRows = 4;   // fine rows per thread (forward: kRMax / 8 warps)
 constexpr int kCB = 256;   // channels per group (backward: one per thread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ bool keep_bit(uint32_t bseed, int y, int x, int c,
                                          int W, int C, uint32_t thresh) {
@@ -314,154 +301,6 @@ __device__ __forceinline__ void bwd_passes(Bwd<NCP>& s, const float* pp_s,
   for (int e = 0; e < 81; ++e) store(drow + (size_t)e * C, dacc[e]);
 }
 
-// bf16: the kron table's rows rounded to bf16, as K7 and the TPU kernel
-// multiply them. A bilinear phase table has two non-zero coarse offsets per
-// fine line and conv tap: Ay[p, 3ky + d] ≠ 0 only for d ∈ {sy, sy + 1},
-// sy = (Ay[p, 3ky] == 0), which moves from 0 to 1 once as p grows; and
-// Ax[q, 3d + kx] likewise, with sx(q, kx) growing with kx (the tap reads
-// fine position q + kx − 1). So a pixel's kron row has 36 non-zero
-// entries, not 81: 4 per tap (ky, kx). The thread keeps pp and the
-// transpose's sums only for each ky's two live offsets (pps and dac
-// [ky][iy][9], 54 values each), shifting a slot when sy moves (its finished offset goes to
-// device memory), and the pixel body is instantiated for the four x
-// patterns (NX = how many kx have sx = 1, the highest kx first), each a
-// run of fine columns.
-// tab [r][36] holds row p's table, entry ((ky·2 + iy)·2 + ix)·3 + kx =
-// bf16(Ay[p, 3ky + sy + iy] · Ax[q, 3(sx + ix) + kx]).
-template <int NX>
-__device__ __forceinline__ constexpr int sx_of(int kx) {
-  return kx >= 3 - NX ? 1 : 0;
-}
-
-template <int NX, int NCP>
-__device__ __forceinline__ void kron_pixel(Bwd<NCP>& s,
-                                           const float (&pps)[3][2][9],
-                                           float (&dac)[3][2][9],
-                                           const float* tq, int pix,
-                                           uint32_t idx) {
-  float tv[36];  // the pixel's table, for both products
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    const float4 t4 = reinterpret_cast<const float4*>(tq)[e];
-    tv[4 * e] = t4.x;
-    tv[4 * e + 1] = t4.y;
-    tv[4 * e + 2] = t4.z;
-    tv[4 * e + 3] = t4.w;
-  }
-  float f[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-    for (int iy = 0; iy < 2; ++iy)
-#pragma unroll
-      for (int ix = 0; ix < 2; ++ix)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          f[ky] += tv[((ky * 2 + iy) * 2 + ix) * 3 + kx] *
-                   pps[ky][iy][3 * (sx_of<NX>(kx) + ix) + kx];
-  const float df = bwd_pixel<__nv_bfloat16>(s, f[0] + f[1] + f[2], pix, idx);
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-    for (int iy = 0; iy < 2; ++iy)
-#pragma unroll
-      for (int ix = 0; ix < 2; ++ix)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-          dac[ky][iy][3 * (sx_of<NX>(kx) + ix) + kx] +=
-              tv[((ky * 2 + iy) * 2 + ix) * 3 + kx] * df;
-}
-
-template <int NCP>
-__device__ __forceinline__ void bwd_kron(Bwd<NCP>& s, const float* pp_s,
-                                         const float (*ay_s)[9],
-                                         const float (*ax_s)[9],
-                                         float (*tab)[36], bool active, int r,
-                                         int i, int j, int W, int C, int c,
-                                         __nv_bfloat16* __restrict__ drow) {
-  const int tid = threadIdx.x;
-  float pps[3][2][9], dac[3][2][9];
-  int sy[3], sy0[3];
-  // the fine columns by x pattern: NX grows with q, so each pattern is one
-  // run of columns, [0, q1), [q1, q2), [q2, q3), [q3, r)
-  int q1 = 0, q2 = 0, q3 = 0;
-  for (int q = 0; q < r; ++q) {
-    const int nx = (ax_s[q][0] == 0.f) + (ax_s[q][1] == 0.f) +
-                   (ax_s[q][2] == 0.f);
-    q1 += nx < 1;
-    q2 += nx < 2;
-    q3 += nx < 3;
-  }
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky) {
-    sy[ky] = sy0[ky] = ay_s[0][3 * ky] == 0.f;
-#pragma unroll
-    for (int iy = 0; iy < 2; ++iy)
-#pragma unroll
-      for (int bb = 0; bb < 9; ++bb) {
-        pps[ky][iy][bb] =
-            pp_s[((3 * ky + sy[ky] + iy) * 9 + bb) * kCB + tid];
-        dac[ky][iy][bb] = 0.f;
-      }
-  }
-#pragma unroll 1
-  for (int p = 0; p < r; ++p) {
-    __syncthreads();  // the previous row's table is no longer read
-    for (int e = tid; e < r * 36; e += kThreads) {
-      const int q = e / 36, t = e - 36 * q;
-      const int ky = t / 12, iy = (t / 6) & 1, ix = (t / 3) & 1, kx = t % 3;
-      const int syk = ay_s[p][3 * ky] == 0.f, sxk = ax_s[q][kx] == 0.f;
-      tab[q][t] = round_like(ay_s[p][3 * ky + syk + iy] *
-                                 ax_s[q][3 * (sxk + ix) + kx],
-                             (const __nv_bfloat16*)nullptr);
-    }
-    __syncthreads();
-    // a ky whose window moved: its offset 0 is done, offsets 1, 2 live on
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      if (sy[ky] || ay_s[p][3 * ky] != 0.f) continue;
-      sy[ky] = 1;
-#pragma unroll
-      for (int bb = 0; bb < 9; ++bb) {
-        if (active) store(drow + (size_t)((3 * ky) * 9 + bb) * C,
-                          dac[ky][0][bb]);
-        pps[ky][0][bb] = pps[ky][1][bb];
-        dac[ky][0][bb] = dac[ky][1][bb];
-        pps[ky][1][bb] = pp_s[((3 * ky + 2) * 9 + bb) * kCB + tid];
-        dac[ky][1][bb] = 0.f;
-      }
-    }
-    if (!active) continue;
-    const uint32_t idx0 = (uint32_t)(((i * r + p) * W + j * r) * C + c);
-    int q = 0;
-#pragma unroll 1
-    for (; q < q1; ++q)
-      kron_pixel<0>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
-#pragma unroll 1
-    for (; q < q2; ++q)
-      kron_pixel<1>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
-#pragma unroll 1
-    for (; q < q3; ++q)
-      kron_pixel<2>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
-#pragma unroll 1
-    for (; q < r; ++q)
-      kron_pixel<3>(s, pps, dac, tab[q], p * r + q, idx0 + (uint32_t)(q * C));
-  }
-  if (!active) return;
-  // the live offsets, and zeros for an offset no row reached
-#pragma unroll
-  for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-    for (int bb = 0; bb < 9; ++bb) {
-#pragma unroll
-      for (int iy = 0; iy < 2; ++iy)
-        store(drow + (size_t)((3 * ky + sy[ky] + iy) * 9 + bb) * C,
-              dac[ky][iy][bb]);
-      if (!sy[ky]) store(drow + (size_t)((3 * ky + 2) * 9 + bb) * C, 0.f);
-      else if (sy0[ky]) store(drow + (size_t)((3 * ky) * 9 + bb) * C, 0.f);
-    }
-}
-
 // NCP classes in registers (the instantiation bwd_ncp picks for nc; zero
 // columns of dy and wp past nc). Dynamic shared memory: dy tile [r·r][NCP]
 // then pp [81][kCB], f32. A block's partial row: da1 [C] | dc1 [C] |
@@ -479,8 +318,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* dy_s = smem;                // [r·r][NCP]
   float* pp_s = smem + r * r * NCP;  // [81][kCB]
   __shared__ float ay_s[kRMax][9], ax_s[kRMax][9];
-  // bf16 mode: one fine row's kron table (bwd_kron)
-  __shared__ __align__(16) float tab[kRMax][36];
 
   const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -529,13 +366,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     s.sc = c1[cc];
     s.da = s.dc = 0.f;
     T* drow = dpp + blk * 81 * C + cc;
-    if constexpr (std::is_same<T, float>::value) {
-      if (!active) continue;
-      bwd_passes(s, pp_s, ay_s, ax_s, r, i, j, W, C, c, drow);
-    } else {
-      bwd_kron(s, pp_s, ay_s, ax_s, tab, active, r, i, j, W, C, cc, drow);
-      if (!active) continue;
-    }
+    if (!active) continue;
+    bwd_passes(s, pp_s, ay_s, ax_s, r, i, j, W, C, c, drow);
     prow[c] = s.da;
     prow[C + c] = s.dc;
 #pragma unroll
@@ -599,10 +431,11 @@ int bwd_typed(const void* P, const float* ay, const float* ax, const float* a1,
   return (int)cudaGetLastError();
 }
 
-// K8 keeps a thread's rows of wp, dwp and dy in registers and does all
-// their work for every class it was instantiated for, so the instantiation
-// follows the class count: exactly 19 (Cityscapes, every configuration of
-// the repo), else 8·⌈nc/8⌉ with zero columns past nc, as K2 and K7 pad.
+// The f32 K8 keeps a thread's rows of wp, dwp and dy in registers and does
+// all their work for every class it was instantiated for, so the
+// instantiation follows the class count: exactly 19 (Cityscapes, every
+// configuration of the repo), else 8·⌈nc/8⌉ with zero columns past nc, as
+// K2 and K7 pad.
 template <typename T>
 int bwd_ncp(const void* P, const float* ay, const float* ax, const float* a1,
             const float* c1, const void* wp, const void* dy, const int* seed,
@@ -662,23 +495,34 @@ extern "C" int seg_train_fwd_launch(const void* P, const void* ay,
 
 // Backward: + dy [B, h·r, w·r, nc] in P's dtype; writes dpp [B, h, w, 81, C]
 // in P's dtype and sums [2C + nc·C + nc] f32 = (da1 | dc1 | dwp [C, nc] |
-// dbp); part is f32 scratch [B·h·w, 2C + nc·C + nc].
+// dbp); part is f32 scratch [B·h·w, 2C + nc·C + nc]. bf16 runs the
+// tensor-core body (seg_bwd_mma.cuh), which also takes kron, the [r², 96]
+// bf16 kron table; f32 the CUDA-core body (kron unused).
 extern "C" int seg_train_bwd_launch(const void* P, const void* ay,
                                     const void* ax, const void* a1,
                                     const void* c1, const void* wp,
                                     const void* dy, const void* seed,
                                     unsigned thresh, float inv_keep, int drop,
-                                    void* dpp, void* part, void* sums, int B,
-                                    int h, int w, int C, int r, int nc,
-                                    int is_bf16, void* stream) {
+                                    void* dpp, void* part, void* sums,
+                                    const void* kron, int B, int h, int w,
+                                    int C, int r, int nc, int is_bf16,
+                                    void* stream) {
   if (!shapes_ok(r, C, nc)) return (int)cudaErrorInvalidValue;
   const float *fay = (const float*)ay, *fax = (const float*)ax;
   const float *fa1 = (const float*)a1, *fc1 = (const float*)c1;
-  if (is_bf16)
-    return bwd_ncp<__nv_bfloat16>(P, fay, fax, fa1, fc1, wp, dy,
-                                 (const int*)seed, thresh, inv_keep, drop, dpp,
-                                 (float*)part, (float*)sums, B, h, w, C, r, nc,
-                                 (cudaStream_t)stream);
+  if (is_bf16) {
+    const seg_bwd::Params prm{
+        (const seg_mma::bf16*)P, (const seg_mma::bf16*)kron, fa1, fc1,
+        (const seg_mma::bf16*)wp, (const seg_mma::bf16*)dy, (const int*)seed,
+        thresh, inv_keep, (seg_mma::bf16*)dpp, (float*)part, h, w, C, r, nc};
+    int rc = (int)seg_bwd::launch<true>(prm, B, drop != 0,
+                                        (cudaStream_t)stream);
+    if (rc) return rc;
+    const int cols = 2 * C + C * nc + nc;
+    seg_train_reduce<<<(cols + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)part, (float*)sums, B * h * w, cols);
+    return (int)cudaGetLastError();
+  }
   return bwd_ncp<float>(P, fay, fax, fa1, fc1, wp, dy, (const int*)seed, thresh,
                        inv_keep, drop, dpp, (float*)part, (float*)sums, B, h, w,
                        C, r, nc, (cudaStream_t)stream);

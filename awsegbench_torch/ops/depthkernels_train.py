@@ -13,9 +13,14 @@ and including the second conv, runs here:
   ``d1 [B, H, W, C]`` once. On CUDA tensors a ``torch.autograd.Function``
   whose forward launches ``csrc/depth_stage1_train.cu`` K9 and whose
   backward launches K10 (recompute, regenerate the mask, write ``dpp`` and
-  the sums of da1/dc1), then scatters ``dpp`` back to ``P`` in plain torch.
-  It saves P, a1, c1 and the seed, never d1. On CPU tensors it is
-  :func:`d1_core_train_plain` under plain autograd.
+  the sums of da1/dc1), then scatters ``dpp`` back to ``P``
+  (``neighbor_pp_adjoint``). It saves P, a1, c1 and the seed, never d1.
+  K9 and K10 have the seg head's two designs: bf16 on the tensor cores
+  (``mma_bf16``: K7's forward body storing the hidden, K8's backward body
+  without the 1×1; C % 16 == 0) against the bf16-rounded kron table, as
+  the TPU kernels round it; f32 on the CUDA cores (``simt_f32``: the exact
+  two 9-tap passes). On CPU tensors it is :func:`d1_core_train_plain`
+  under plain autograd, which rounds as the kernels do for the dtype.
 * **Border lines**: d1's four outermost fine lines are recomputed from the
   exact zero-padded conv1 lines (``conv1_border_lines``) with the same affine
   and hash mask and pasted in place.
@@ -34,10 +39,11 @@ import torch.nn.functional as F
 
 from .. import _build
 from .._device import const
-from .headkernels import _a2, _a2_dmajor, _neighbor_pp, coarse_partial_products
-from .headkernels_train import (_core_from_pp, _core_params,
-                                _neighbor_pp_adjoint, border_hidden,
-                                dropout_keep_mask, seg_batch_stats)
+from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx_bf16_k96, _design,
+                          _neighbor_pp, coarse_partial_products)
+from .headkernels_train import (_core_from_pp, _core_params, border_hidden,
+                                dropout_keep_mask, neighbor_pp_adjoint,
+                                seg_batch_stats)
 from .upconv import conv1_border_lines
 
 __all__ = ['d1_core_train', 'd1_core_train_backward', 'd1_core_train_plain',
@@ -54,7 +60,8 @@ def d1_core_train_plain(P, a1, c1, seed, rate: float, r: int):
     → d1 [B, h·r, w·r, C] in P's dtype."""
     b, h, w, _, c = P.shape
     pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
-    return _core_from_pp(pp, a1, c1, seed, rate, r, P.dtype)
+    return _core_from_pp(pp, a1, c1, seed, rate, r, P.dtype,
+                         kron_bf16=P.dtype == torch.bfloat16)
 
 
 def d1_core_train_backward_plain(P, a1, c1, seed, dd1, rate: float, r: int):
@@ -65,32 +72,40 @@ def d1_core_train_backward_plain(P, a1, c1, seed, dd1, rate: float, r: int):
     with torch.enable_grad():
         pp = _neighbor_pp(P.detach().reshape(b, h, w, 3, 3, c)).float()
         ins = [t.detach().float().requires_grad_() for t in (pp, a1, c1)]
-        out = _core_from_pp(*ins, seed, rate, r, P.dtype)
+        out = _core_from_pp(*ins, seed, rate, r, P.dtype,
+                            kron_bf16=P.dtype == torch.bfloat16)
         dpp, da1, dc1 = torch.autograd.grad(out, ins, dd1)
     return dpp.to(P.dtype), da1, dc1
 
 
 def _kernel_args(P, a1, c1, seed, r, what):
+    """Validates a depth-core kernel's operands; returns their design and
+    the operands the launch takes."""
     if P.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'{what}: P must be f32 or bf16, got {P.dtype}')
+    design = _design(P.dtype)
     b, h, w, nine, c = P.shape
     if nine != 9 or not 1 <= r <= 32 or c < 1:
         raise ValueError(f'{what}: bad shapes P {tuple(P.shape)}, r {r} '
                          f'(kernel: P [B, h, w, 9, C], 1 ≤ r ≤ 32)')
+    if design == 'mma_bf16' and c % 16:
+        raise ValueError(f'{what}: the bf16 kernels take C % 16 == 0, got '
+                         f'C = {c}')
     if (a1.numel(), c1.numel()) != (c, c):
         raise ValueError(f'{what}: a1/c1 need {c} values')
     if seed.numel() != 1 or seed.device != P.device:
         raise ValueError(f'{what}: seed must be one int32 on P\'s device')
     dev = P.device
     f32 = dict(dtype=torch.float32, device=dev)
-    return (P.contiguous(), const(_a2, r, device=dev),
-            const(_a2_dmajor, r, device=dev),
-            *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
-            seed.detach().to(torch.int32).reshape(1).contiguous())
+    return design, (_build.operand(P), const(_a2, r, device=dev),
+                    const(_a2_dmajor, r, device=dev),
+                    *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
+                    seed.detach().to(torch.int32).reshape(1).contiguous())
 
 
 def _launch_forward(P, a1, c1, seed, rate, r):
-    P, ay, ax, a1, c1, seed = _kernel_args(P, a1, c1, seed, r, 'd1_core_train')
+    design, (P, ay, ax, a1, c1, seed) = _kernel_args(P, a1, c1, seed, r,
+                                                     'd1_core_train')
     b, h, w, _, c = P.shape
     thresh, inv_keep = _core_params(rate)
     out = torch.empty((b, h * r, w * r, c), dtype=P.dtype, device=P.device)
@@ -106,33 +121,36 @@ def _launch_forward(P, a1, c1, seed, rate, r):
         int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
     _build.check(lib, rc, 'd1_core_train')
     d1_core_train.launches += 1
+    d1_core_train.launches_by_design[design] += 1
     return out
 
 
 def _launch_backward(P, a1, c1, seed, dd1, rate, r):
-    P, ay, ax, a1, c1, seed = _kernel_args(P, a1, c1, seed, r,
-                                           'd1_core_train_backward')
+    design, (P, ay, ax, a1, c1, seed) = _kernel_args(
+        P, a1, c1, seed, r, 'd1_core_train_backward')
     b, h, w, _, c = P.shape
     if tuple(dd1.shape) != (b, h * r, w * r, c):
         raise ValueError(f'd1_core_train_backward: dd1 {tuple(dd1.shape)}')
-    dd1 = dd1.to(P.dtype).contiguous()
+    dd1 = _build.operand(dd1.to(P.dtype))
     thresh, inv_keep = _core_params(rate)
     dpp = torch.empty((b, h, w, 81, c), dtype=P.dtype, device=P.device)
     part = torch.empty((b * h * w, 2 * c), dtype=torch.float32,
                        device=P.device)
     sums = torch.empty(2 * c, dtype=torch.float32, device=P.device)
+    kron = const(_ayx_bf16_k96, r, device=P.device, dtype=torch.bfloat16)
     lib = _build.load('depth_stage1_train')
     lib.d1_bwd_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.d1_bwd_launch.restype = ctypes.c_int
     rc = lib.d1_bwd_launch(
         *(_build.ptr(t) for t in (P, ay, ax, a1, c1, dd1, seed)), thresh,
         inv_keep, int(rate > 0.0),
-        *(_build.ptr(t) for t in (dpp, part, sums)), b, h, w, c, r,
+        *(_build.ptr(t) for t in (dpp, part, sums, kron)), b, h, w, c, r,
         int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
     _build.check(lib, rc, 'd1_core_train_backward')
     d1_core_train_backward.launches += 1
+    d1_core_train_backward.launches_by_design[design] += 1
     da1, dc1 = sums.split([c, c])
     return dpp, da1, dc1
 
@@ -146,6 +164,7 @@ def d1_core_train_backward(P, a1, c1, seed, dd1, rate: float, r: int):
 
 
 d1_core_train_backward.launches = 0
+d1_core_train_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _D1CoreTrain(torch.autograd.Function):
@@ -162,7 +181,7 @@ class _D1CoreTrain(torch.autograd.Function):
         P, a1, c1, seed = ctx.saved_tensors
         dpp, da1, dc1 = d1_core_train_backward(P, a1, c1, seed, dd1,
                                                ctx.rate, ctx.r)
-        dP = _neighbor_pp_adjoint(dpp).to(P.dtype)
+        dP = neighbor_pp_adjoint(dpp)
         return dP, da1.to(a1.dtype), dc1.to(c1.dtype), None, None, None
 
 
@@ -179,6 +198,7 @@ def d1_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
 
 
 d1_core_train.launches = 0
+d1_core_train.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -103,6 +103,14 @@ def _ayx_bf16(r: int) -> torch.Tensor:
     return torch.from_numpy(_ayx(r)).bfloat16().float()
 
 
+def _ayx_bf16_k96(r: int) -> torch.Tensor:
+    """[r², 96]: :func:`_ayx_bf16` with its 81 columns padded to the bf16
+    kernels' K = 96 with zeros; the bf16 backward body (``csrc/
+    seg_bwd_mma.cuh``) reads its kron rows from this table, whose entries
+    are the values the forward body forms in registers."""
+    return torch.nn.functional.pad(_ayx_bf16(r), (0, 96 - 81))
+
+
 def phase_passes(pp: torch.Tensor, r: int, kron_bf16: bool) -> torch.Tensor:
     """upsample×r∘conv3×3 on a cell's neighbourhood stack: pp [B, h, w, 81,
     C] (f32) → fine [B, h, w, r, r, C] (f32). With ``kron_bf16``, one

@@ -20,13 +20,13 @@ without storing the full-resolution 256-channel hidden:
   ``torch.autograd.Function`` whose forward launches ``csrc/seg_head_train.cu``
   K7 and whose backward launches K8 (recompute, regenerate the mask, write
   ``dpp`` and the sums of da1/dc1/dwp/dbp), then scatters ``dpp`` back to
-  ``P`` in plain torch. It saves ``P``, a1, c1, wp and the seed, never the
-  hidden. K7 has K2's two designs (``headkernels._design``): bf16 on the
-  tensor cores against the bf16-rounded kron table, as the TPU kernel
-  rounds it, with the hash dropout in registers; f32 on the CUDA cores as
-  two 9-tap passes. K8 runs on the CUDA cores and recomputes fine as K7
-  formed it for the dtype (the bf16 kron table, or the f32 passes), so
-  forward and backward see one ReLU and one mask, as in the TPU kernels.
+  ``P`` (:func:`neighbor_pp_adjoint`, ``csrc/pp_adjoint.cu``). It saves
+  ``P``, a1, c1, wp and the seed, never the hidden. K7 and K8 have K2's two
+  designs (``headkernels._design``): bf16 on the tensor cores against the
+  bf16-rounded kron table, as the TPU kernel rounds it, with the hash
+  dropout in registers (K8 forms fine with K7's own code); f32 on the CUDA
+  cores as two 9-tap passes. So forward and backward see one ReLU and one
+  mask, as in the TPU kernels.
   On CPU tensors the core is :func:`seg_core_train_plain` under plain
   autograd, which rounds as the kernels do for the dtype. Class counts 1
   to 32 reach the kernels, which pad the class axis inside.
@@ -46,8 +46,9 @@ import torch
 
 from .. import _build
 from .._device import const
-from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx, _neighbor_pp,
-                          check_shapes, coarse_partial_products, phase_passes)
+from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx, _ayx_bf16_k96,
+                          _neighbor_pp, check_shapes, coarse_partial_products,
+                          phase_passes)
 from .upconv import conv1_border_lines
 
 _M1 = 0x7FEB352D
@@ -296,6 +297,40 @@ def _shift_gather_adjoint(g: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
+def _launch_pp_adjoint(dpp):
+    if dpp.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'neighbor_pp_adjoint: dpp must be f32 or bf16, got '
+                        f'{dpp.dtype}')
+    if dpp.dim() != 5 or dpp.shape[3] != 81 or 0 in dpp.shape:
+        raise ValueError(f'neighbor_pp_adjoint: bad shape dpp '
+                         f'{tuple(dpp.shape)} (kernel: [B, h, w, 81, C])')
+    dpp = dpp.contiguous()
+    b, h, w, _, c = dpp.shape
+    out = torch.empty((b, h, w, 9, c), dtype=dpp.dtype, device=dpp.device)
+    rc = _build.entry('pp_adjoint', 'pp_adjoint_launch',
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])(
+        _build.ptr(dpp), _build.ptr(out), b, h, w, c,
+        int(dpp.dtype == torch.bfloat16), _build.stream_ptr(dpp))
+    _build.check(_build.load('pp_adjoint'), rc, 'neighbor_pp_adjoint')
+    neighbor_pp_adjoint.launches += 1
+    return out
+
+
+def neighbor_pp_adjoint(dpp: torch.Tensor) -> torch.Tensor:
+    """dpp [B, h, w, 81, C] → dP [B, h, w, 9, C] in dpp's dtype (the train
+    backwards' gradient of P, which dpp shares its dtype with): the
+    transpose of the neighbourhood gather. CUDA tensors launch
+    ``csrc/pp_adjoint.cu``, which sums in f32 in the plain version's
+    order; CPU tensors take :func:`_neighbor_pp_adjoint`."""
+    if dpp.is_cuda:
+        return _launch_pp_adjoint(dpp)
+    return _neighbor_pp_adjoint(dpp).to(dpp.dtype)
+
+
+neighbor_pp_adjoint.launches = 0
+
+
 def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
     design = check_shapes(P, wp, a1, c1, bp, r, what)
     if seed.numel() != 1 or seed.device != P.device:
@@ -335,8 +370,8 @@ def _launch_forward(P, a1, c1, wp, bp, seed, rate, r):
 
 
 def _launch_backward(P, a1, c1, wp, bp, seed, dy, rate, r):
-    _, args = _kernel_args(P, a1, c1, wp, bp, seed, r,
-                           'seg_core_train_backward')
+    design, args = _kernel_args(P, a1, c1, wp, bp, seed, r,
+                                'seg_core_train_backward')
     P = args[0]
     b, h, w, _, c = P.shape
     nc = wp.shape[1]
@@ -348,14 +383,16 @@ def _launch_backward(P, a1, c1, wp, bp, seed, dy, rate, r):
     dpp = torch.empty((b, h, w, 81, c), dtype=P.dtype, device=P.device)
     part = torch.empty((b * h * w, cols), dtype=torch.float32, device=P.device)
     sums = torch.empty(cols, dtype=torch.float32, device=P.device)
+    kron = const(_ayx_bf16_k96, r, device=P.device, dtype=torch.bfloat16)
     rc = _build.entry('seg_head_train', 'seg_train_bwd_launch',
-                      _HEAD + [ctypes.c_void_p] * 3 + _TAIL)(
+                      _HEAD + [ctypes.c_void_p] * 4 + _TAIL)(
         *(_build.ptr(t) for t in (*args[:6], dy, args[7])), thresh, inv_keep,
-        int(rate > 0.0), *(_build.ptr(t) for t in (dpp, part, sums)),
+        int(rate > 0.0), *(_build.ptr(t) for t in (dpp, part, sums, kron)),
         b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
         _build.stream_ptr(P))
     _build.check(_build.load('seg_head_train'), rc, 'seg_core_train_backward')
     seg_core_train_backward.launches += 1
+    seg_core_train_backward.launches_by_design[design] += 1
     da1, dc1, dwp, dbp = sums.split([c, c, nc * c, nc])
     return dpp, da1, dc1, dwp.reshape(c, nc), dbp
 
@@ -369,6 +406,7 @@ def seg_core_train_backward(P, a1, c1, wp, bp, seed, dy, rate: float, r: int):
 
 
 seg_core_train_backward.launches = 0
+seg_core_train_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 class _SegCoreTrain(torch.autograd.Function):
@@ -385,7 +423,7 @@ class _SegCoreTrain(torch.autograd.Function):
         P, a1, c1, wp, bp, seed = ctx.saved_tensors
         dpp, da1, dc1, dwp, dbp = seg_core_train_backward(
             P, a1, c1, wp, bp, seed, dy, ctx.rate, ctx.r)
-        dP = _neighbor_pp_adjoint(dpp).to(P.dtype)
+        dP = neighbor_pp_adjoint(dpp)
         return (dP, da1.to(a1.dtype), dc1.to(c1.dtype), dwp.to(wp.dtype),
                 dbp.to(bp.dtype), None, None, None)
 

@@ -151,6 +151,64 @@ def test_depth_stage1_bf16_against_jax():
         np.abs(np.asarray(v)).max())
 
 
+def _core_case(r, rate, b=1, h=2, w=2, c=16):
+    """bf16 P [b, h, w, 9, c], a1, c1, dd1 and the seed from numpy, and
+    the same pp (chunk 1), a1, c1 and seed as JAX's core kernels take."""
+    rng = np.random.default_rng(r + int(rate * 10))
+    P = _t(rng.standard_normal((b, h, w, 9, c)).astype(np.float32)
+           * 0.5).bfloat16()
+    a1 = _t((1 + 0.1 * rng.standard_normal(c)).astype(np.float32))
+    c1 = _t((0.1 * rng.standard_normal(c)).astype(np.float32))
+    dd1 = _t(rng.standard_normal((b, h * r, w * r, c)).astype(
+        np.float32)).bfloat16()
+    seed = 12345 + r
+    pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float().numpy()
+    jargs = (jnp.asarray(pp, jnp.bfloat16), jnp.asarray(a1.numpy())[None],
+             jnp.asarray(c1.numpy())[None], jnp.asarray([seed], jnp.int32),
+             rate, r, h * r, w * r, True, c, 1)
+    return (P, a1, c1, torch.tensor(seed, dtype=torch.int32), dd1), jargs
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32).reshape(-1)
+    got = got.float().numpy().reshape(-1)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('r', [4, 8, 32])
+def test_d1_plain_forward_rounds_as_jax_bf16(r, rate):
+    """In bf16, K9's plain version forms fine with the bf16 kron table, as
+    JAX's ``_d1_fwd_kernel`` (interpret mode) does: d1 ≥ 99.9% bit-equal.
+    With the exact f32 two-pass tables it read 81–85% at r = 32."""
+    (P, a1, c1, seed, _), jargs = _core_case(r, rate)
+    want = np.asarray(jdk._core_fwd_impl(*jargs).astype(jnp.float32))
+    got = dk.d1_core_train_plain(P, a1, c1, seed, rate, r)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    share = float((got.float().numpy() == want).mean())
+    assert share >= 0.999, f'{share} of d1 bit-equal'
+
+
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('r', [4, 8, 32])
+def test_d1_plain_backward_rounds_as_jax_bf16(r, rate):
+    """K10's plain version against JAX's ``_d1_bwd_kernel`` (interpret
+    mode) in bf16: da1 and dc1 within 1e-5 of their scale (they read 0.2%
+    and 3–5% off at r = 32 before the plain versions used the bf16 kron
+    table). dpp within 1e-2: autograd keeps dfine in f32 where the kernel
+    rounds it to bf16 (``test_torch_seg_head_tiles.py`` holds that order
+    bit for bit)."""
+    (P, a1, c1, seed, dd1), jargs = _core_case(r, rate)
+    dpp, da1, dc1 = jdk._core_bwd_impl(
+        *jargs, jnp.asarray(dd1.float().numpy(), jnp.bfloat16))
+    got = dk.d1_core_train_backward_plain(P, a1, c1, seed, dd1, rate, r)
+    assert got[0].dtype == torch.bfloat16
+    for name, g, want, tol in (('dpp', got[0], dpp.astype(jnp.float32), 1e-2),
+                               ('da1', got[1], da1, 1e-5),
+                               ('dc1', got[2], dc1, 1e-5)):
+        assert _rel(g, want) <= tol, f'{name}: {_rel(g, want)} > {tol}'
+
+
 @pytest.mark.parametrize('seed', [0, -123456789, 2 ** 31 - 1])
 def test_d1_keep_mask_bit_equal_to_jax(seed):
     """The [B, H, W, 128] mask of the SegFormer depth head's hidden."""

@@ -35,9 +35,11 @@ import numpy as np
 import pytest
 import torch
 
+from awsegbench.ops import depthkernels_train as jdk
 from awsegbench.ops import headkernels as jhead
 from awsegbench.ops import headkernels_train as jht
-from awsegbench_torch.ops import headkernels, headkernels_train
+from awsegbench_torch.ops import (depthkernels_train, headkernels,
+                                  headkernels_train)
 from awsegbench_torch.ops.headkernels import _neighbor_pp
 
 torch.set_num_threads(1)
@@ -215,73 +217,161 @@ def test_design_by_dtype(dtype, design):
         headkernels._design(torch.float16)
 
 
-def _round_bf16(x):
-    return float(torch.tensor(np.float32(x)).bfloat16())
+def _keep_cells(b, h, w, c, seed, rate, r):
+    """JAX's keep mask in the cells' layout [B, h, w, r², C], or None."""
+    if rate == 0.0:
+        return None
+    keep = np.asarray(jht.dropout_keep_mask((b, h * r, w * r, c),
+                                            jnp.int32(int(seed)), rate))
+    return torch.from_numpy(keep).reshape(b, h, r, w, r, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, h, w, r * r, c)
 
 
-def k8_kron_order(pp, df, r):
-    """``bwd_kron``'s indexing for one channel, in f64: pp [81] → fine
-    [r, r] through each pixel's 36 live kron entries; the pixels' df [r, r]
-    → dpp [81] through the slots of each ky's two live coarse offsets."""
-    ay, ax = headkernels._a2(r), headkernels._a2_dmajor(r)
-    # the kernel runs each x pattern as one run of fine columns
-    nxs = [sum(int(ax[q, kx] == 0) for kx in range(3)) for q in range(r)]
-    assert nxs == sorted(nxs)
-    sy0 = [int(ay[0, 3 * ky] == 0) for ky in range(3)]
-    sy = list(sy0)
-    rows = lambda a: slice(9 * a, 9 * a + 9)  # noqa: E731
-    pps = [[pp[rows(3 * ky + sy[ky] + iy)].copy() for iy in (0, 1)]
-           for ky in range(3)]
-    dac = [[np.zeros(9) for _ in (0, 1)] for _ in range(3)]
-    dpp = np.full(81, np.nan)
-    fine = np.zeros((r, r))
-    for p in range(r):
-        for ky in range(3):
-            if sy[ky] or ay[p, 3 * ky] != 0:
-                continue
-            sy[ky] = 1
-            dpp[rows(3 * ky)] = dac[ky][0]
-            pps[ky] = [pps[ky][1], pp[rows(3 * ky + 2)].copy()]
-            dac[ky] = [dac[ky][1], np.zeros(9)]
-        for q in range(r):
-            nx = nxs[q]
-            taps = []
-            for ky in range(3):
-                syk = int(ay[p, 3 * ky] == 0)
-                for iy in (0, 1):
-                    for ix in (0, 1):
-                        for kx in range(3):
-                            sxk = int(ax[q, kx] == 0)
-                            t = _round_bf16(ay[p, 3 * ky + syk + iy]
-                                            * ax[q, 3 * (sxk + ix) + kx])
-                            bb = 3 * (int(kx >= 3 - nx) + ix) + kx
-                            taps.append((t, ky, iy, bb))
-            fine[p, q] = sum(t * pps[ky][iy][bb] for t, ky, iy, bb in taps)
-            for t, ky, iy, bb in taps:
-                dac[ky][iy][bb] += t * df[p, q]
-    for ky in range(3):
-        for iy in (0, 1):
-            dpp[rows(3 * ky + sy[ky] + iy)] = dac[ky][iy]
-        if not sy[ky]:
-            dpp[rows(3 * ky + 2)] = 0.0
-        elif sy0[ky]:
-            dpp[rows(3 * ky)] = 0.0
-    return fine, dpp
+def tiled_bwd(P, a1, c1, wp, seed, dy, rate, r):
+    """The bf16 backward body's order (``csrc/seg_bwd_mma.cuh``): K8 with
+    the 1×1's weights wp and the logits' gradient dy, K10 with wp None and
+    dy = dd1. Returns (dpp [B, h, w, 81, C] bf16, da1, dc1, dwp, dbp), the
+    last two None for K10.
+
+    fine is the forward's product (``tiled_core_train``: the bf16 kron
+    table, K = 96); dv = bf16(dy)·bf16(wp)ᵀ and dwp = bf16(v)ᵀ·bf16(dy) in
+    f32; dfine = dz·a1 rounded to bf16 before dpp = kronᵀ·dfine, rounded
+    to bf16."""
+    b, h, w, _, c = P.shape
+    pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
+    pp = torch.nn.functional.pad(pp, (0, 0, 0, K_PAD - 81))
+    tab = kron_bf16(r)                                   # [r², 96]
+    fine = torch.einsum('mk,bhwkc->bhwmc', tab, pp)      # [B,h,w,r²,C]
+    z = fine * a1.float() + c1.float()
+    keep = _keep_cells(b, h, w, c, seed, rate, r)
+    inv = 1.0 / (1.0 - rate)
+    dropped = (lambda x: x) if keep is None else (  # noqa: E731
+        lambda x: torch.where(keep, x * inv, 0.0))
+    g = dy.float().reshape(b, h, r, w, r, -1).permute(0, 1, 3, 2, 4, 5)
+    g = g.reshape(b, h, w, r * r, -1)
+    dwp = dbp = None
+    if wp is None:
+        du = dropped(g)
+    else:
+        v = dropped(torch.relu(z)).bfloat16().float()
+        du = dropped(g @ wp.bfloat16().float().T)
+        dwp = torch.einsum('bhwmc,bhwmk->ck', v, g)
+        dbp = g.sum((0, 1, 2, 3))
+    dz = torch.where(z > 0, du, 0.0)
+    da1, dc1 = (dz * fine).sum((0, 1, 2, 3)), dz.sum((0, 1, 2, 3))
+    dfine = (dz * a1.float()).bfloat16().float()
+    dpp = torch.einsum('mk,bhwmc->bhwkc', tab, dfine)[..., :81, :]
+    return dpp.bfloat16(), da1, dc1, dwp, dbp
 
 
-@pytest.mark.parametrize('r', [2, 3, 4, 5, 8, 17, 32])
-def test_k8_kron_windows_hold_every_table_entry(r):
-    """K8's 36-entry windows and slot shifts give the full bf16 kron
-    product and its transpose."""
-    rng = np.random.default_rng(r)
-    pp, df = rng.standard_normal(81), rng.standard_normal((r, r))
-    table = headkernels._ayx_bf16(r).double().numpy()          # [r², 81]
-    fine, dpp = k8_kron_order(pp, df, r)
-    assert not np.isnan(dpp).any()
-    np.testing.assert_allclose(fine.reshape(-1), table @ pp, rtol=1e-12,
-                               atol=1e-12)
-    np.testing.assert_allclose(dpp, table.T @ df.reshape(-1), rtol=1e-12,
-                               atol=1e-12)
+def _dwp_flip_room(P, a1, c1, dy, rate, r):
+    """[C, nc]: what one hidden element rounding to bf16 the other way
+    moves dwp[c, k] by, at most: one bf16 step of channel c's largest |v|
+    times class k's largest |dy|. A fine value whose f32 sum, in another
+    order, lands on the other side of a rounding boundary of v flips v by
+    that step (one element of 393,216 at r = 32 here)."""
+    b, h, w, _, c = P.shape
+    pp = _neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
+    fine = torch.einsum('mk,bhwkc->bhwmc', kron_bf16(r)[:, :81], pp)
+    v = torch.relu(fine * a1 + c1) / (1.0 - rate)
+    vmax = v.abs().amax((0, 1, 2, 3))
+    return bf16_step(vmax)[:, None] * dy.float().abs().amax((0, 1, 2))[None]
+
+
+def _bwd_case(h, w, nc, r, rate, depth):
+    """bf16 P, a1, c1, (K8) wp and bp, the seed and dy (K8) or dd1 (K10),
+    from a numpy seed."""
+    rng = np.random.default_rng(h * w * r + nc + depth)
+    c = 32
+    P = torch.from_numpy((rng.standard_normal((2, h, w, 9, c)) * 0.5)
+                         .astype(np.float32)).bfloat16()
+    a1 = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(
+        np.float32))
+    c1 = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+    wp = torch.from_numpy((rng.standard_normal((c, nc)) / 16).astype(
+        np.float32)).bfloat16()
+    bp = torch.from_numpy((0.1 * rng.standard_normal(nc)).astype(np.float32))
+    dy = torch.from_numpy((rng.standard_normal(
+        (2, h * r, w * r, c if depth else nc)) * (1 if depth else 0.1))
+        .astype(np.float32)).bfloat16()
+    return P, a1, c1, wp, bp, -13579 + r, dy
+
+
+def _jax_bwd(P, a1, c1, wp, bp, seed, dy, rate, r, depth):
+    """JAX's backward kernels in interpret mode, on the same cells (chunk
+    1): (dpp, da1, dc1, dwp, dbp) as numpy, the last two None for K10."""
+    b, h, w, _, c = P.shape
+    pp = jnp.asarray(_neighbor_pp(P.reshape(b, h, w, 3, 3, c)).float()
+                     .numpy(), jnp.bfloat16)
+    a1t, c1t = (jnp.asarray(t.numpy())[None] for t in (a1, c1))
+    sd = jnp.asarray([seed], jnp.int32)
+    g = jnp.asarray(dy.float().numpy(), jnp.bfloat16)
+    if depth:
+        out = jdk._core_bwd_impl(pp, a1t, c1t, sd, rate, r, h * r, w * r,
+                                 True, c, 1, g)
+        out = (*out, None, None)
+    else:
+        # wp's values are bf16 and the kernel rounds it to bf16 itself; in
+        # f32 here, so _seg_core_bwd returns dwp in f32 (it casts dwp to
+        # wp's dtype)
+        res = (pp, a1t, c1t, jnp.asarray(wp.float().numpy()),
+               jnp.asarray(bp.numpy()), sd, None)
+        out = jht._seg_core_bwd(rate, r, h * r, w * r, True, res, g)[:5]
+    return [None if x is None else np.asarray(
+        jnp.asarray(x).astype(jnp.float32)).reshape(x.shape) for x in out]
+
+
+def _assert_scaled(name, got, want, tol):
+    want = np.asarray(want, np.float32).reshape(got.shape)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= tol * scale, f'{name}: {err} > {tol} × {scale}'
+
+
+@pytest.mark.parametrize('depth', [False, True], ids=['k8', 'k10'])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('h,w,nc,r', CASES)
+def test_tiled_backward_matches_jax_bf16(h, w, nc, r, rate, depth):
+    """The backward body's order against JAX's ``_seg_core_bwd`` (K8) and
+    ``_core_bwd_impl`` (K10) in interpret mode: dpp ≥ 99.9% bit-equal and
+    the rest within one bf16 step; da1, dc1, dwp, dbp within 1e-5 of their
+    scale (f32 sums in another order)."""
+    P, a1, c1, wp, bp, seed, dy = _bwd_case(h, w, nc, r, rate, depth)
+    got = tiled_bwd(P, a1, c1, None if depth else wp, seed, dy, rate, r)
+    want = _jax_bwd(P, a1, c1, wp, bp, seed, dy, rate, r, depth)
+    assert got[0].shape == want[0].shape
+    assert_within_one_step(got[0], want[0])
+    for name, g, wv in zip(('da1', 'dc1', 'dbp'), got[1:3] + got[4:],
+                           want[1:3] + want[4:]):
+        if wv is not None:
+            _assert_scaled(name, g, wv, 1e-5)
+    if not depth:   # dwp: 1e-5 of its scale, and room for one v flip
+        err = (got[3] - torch.from_numpy(want[3])).abs()
+        room = 1e-5 * float(np.abs(want[3]).max()) + _dwp_flip_room(
+            P, a1, c1, dy, rate, r)
+        assert bool((err <= room).all()), \
+            f'dwp: max excess {(err - room).max().item()}'
+
+
+@pytest.mark.parametrize('depth', [False, True], ids=['k8', 'k10'])
+@pytest.mark.parametrize('rate', [0.0, 0.1])
+@pytest.mark.parametrize('h,w,nc,r', CASES)
+def test_tiled_backward_matches_the_plain_versions(h, w, nc, r, rate, depth):
+    """What chip_smoke.py holds K8 and K10 to on the card, here on the CPU:
+    the backward body's order against the port's plain versions within 6e-2
+    of each gradient's scale."""
+    P, a1, c1, wp, bp, seed, dy = _bwd_case(h, w, nc, r, rate, depth)
+    st = torch.tensor(seed, dtype=torch.int32)
+    got = tiled_bwd(P, a1, c1, None if depth else wp, st, dy, rate, r)
+    if depth:
+        want = depthkernels_train.d1_core_train_backward_plain(
+            P, a1, c1, st, dy, rate, r)
+    else:
+        want = headkernels_train.seg_core_train_backward_plain(
+            P, a1, c1, wp, bp, st, dy, rate, r)
+    assert want[0].dtype == torch.bfloat16
+    for name, g, wv in zip(('dpp', 'da1', 'dc1', 'dwp', 'dbp'), got, want):
+        _assert_scaled(name, g, wv.float().numpy(), 6e-2)
 
 
 @pytest.mark.parametrize('nc,r', [(5, 32), (19, 8)])
