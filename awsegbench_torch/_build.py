@@ -124,9 +124,12 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(t) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device, for a launch."""
+    """PyTorch's current CUDA stream on ``t``'s device, for a launch: the
+    raw handle, as PyTorch's own Triton launcher reads it
+    (``torch.cuda.current_stream`` builds a Stream object first, a large
+    share of a small kernel's host time per launch)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def ptr(t) -> ctypes.c_void_p:

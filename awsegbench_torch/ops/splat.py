@@ -1,24 +1,34 @@
 """Rain/snow splat masks (counterpart of ``awsegbench/ops/splat.py``).
 
 The union coverage mask of up to N capsules: pixel P is covered by segment
-AB with radius r iff ``dist(P, AB)² ≤ r²``. Three kernels of
-``csrc/splat.cu`` compute it:
+AB with radius r iff ``dist(P, AB)² ≤ r²``. Two kernels of ``csrc/splat.cu``
+compute it:
 
-* :func:`splat_coverage_batched` (K3), a batch of images [B, N, 8] → [B, H,
-  W], one block per drop over the drop's bounding box;
-* :func:`splat_coverage` for one image [N, 8] → [H, W], which dispatches as
-  the JAX package's ``splat_coverage_pallas`` does: up to 1 Mpx after its
-  padding to its 40×256 windows :func:`splat_coverage_windowed` (K4, one
-  block per drop), above that :func:`splat_coverage_tiled` (K5, one block
-  per 32×32 tile with a bounding-box cull).
+* ``splat_tiles_kernel``, one block per (tile, image): it culls
+  the image's drops to those whose inflated box (:func:`drop_boxes`) meets
+  the tile and writes each pixel of the tile once, so the mask is allocated
+  with ``torch.empty`` and never zero-filled. It serves
+  :func:`splat_coverage_batched` (K3, a batch [B, N, 8] → [B, H, W]) and
+  :func:`splat_coverage_windowed` (K4, one image [N, 8] → [H, W], the same
+  launch at B = 1). Its tiles are ``BATCH_TILE`` for a batch and
+  ``IMAGE_TILE`` for one image;
+* ``splat_tiled_kernel`` serves :func:`splat_coverage_tiled` (K5, one image,
+  one block per 32×32 tile).
+
+:func:`splat_coverage` dispatches one image as the JAX package's
+``splat_coverage_pallas`` does: up to 1 Mpx after its padding to its 40×256
+windows K4, above that K5.
 
 On a CPU tensor each runs :func:`splat_coverage_plain`, the chunked
-distance test of the JAX package's ``_segment_coverage``. The kernels use
-the same operation order and are built without multiply-add contraction,
-so every mask equals its plain version bit for bit.
+distance test of the JAX package's ``_segment_coverage``.
+:func:`splat_coverage_tiles_plain` is the plain model of K3/K4's tile walk
+(cull, then each tile's pixels against its kept drops), which the tests
+hold equal to it. The kernels use the same operation order and are built
+without multiply-add contraction, so every mask equals its plain version
+bit for bit.
 
 The TPU kernel needed its valid drops compacted and y-sorted first
-(``prepare_splat_batch``); the CUDA kernel does not, so that step is not
+(``prepare_splat_batch``); the CUDA kernels do not, so that step is not
 ported.
 """
 
@@ -41,64 +51,124 @@ def pack_params(ax, ay, bx, by, radius, valid) -> torch.Tensor:
                         zeros, zeros], dim=-1).to(torch.float32)
 
 
+# K3/K4's tiles, rows × columns (csrc/splat.cu): a batch's, one image's
+BATCH_TILE, IMAGE_TILE = (128, 64), (16, 128)
+
+
+def _coverage(params: torch.Tensor, px: torch.Tensor,
+              py: torch.Tensor) -> torch.Tensor:
+    """[N, 8] drops → bool coverage of the pixel grid ``py`` × ``px``
+    (``_segment_coverage``'s chunked test, valid drops only)."""
+    px, py = px[None, None, :], py[None, :, None]
+    cov = torch.zeros((py.shape[1], px.shape[2]), dtype=torch.bool,
+                      device=params.device)
+    for s in range(0, params.shape[0], _CHUNK):
+        p = params[s:s + _CHUNK, :, None, None]          # [c, 8, 1, 1]
+        sax, say, sbx, sby, r, v = (p[:, j] for j in range(6))
+        dx, dy = sbx - sax, sby - say
+        len2 = dx * dx + dy * dy
+        t = torch.where(len2 > 0, ((px - sax) * dx + (py - say) * dy)
+                        / torch.clamp(len2, min=1e-8), 0.0)
+        t = torch.clamp(t, 0.0, 1.0)
+        ex = px - (sax + t * dx)
+        ey = py - (say + t * dy)
+        d2 = ex * ex + ey * ey
+        hit = (d2 <= r * r) & (v > 0)
+        cov |= hit.any(dim=0)
+    return cov
+
+
+def _grid(start: int, stop: int, device) -> torch.Tensor:
+    return torch.arange(start, stop, dtype=torch.float32, device=device)
+
+
 def splat_coverage_plain(params: torch.Tensor, height: int,
                          width: int) -> torch.Tensor:
     """[B, N, 8] → [B, H, W] float 0/1, ``_segment_coverage`` per image."""
-    b, n, _ = params.shape
     dev = params.device
-    px = torch.arange(width, dtype=torch.float32, device=dev)[None, None, :]
-    py = torch.arange(height, dtype=torch.float32, device=dev)[None, :, None]
-    out = torch.zeros((b, height, width), dtype=torch.float32, device=dev)
-    for i in range(b):
-        cov = torch.zeros((height, width), dtype=torch.bool, device=dev)
-        for s in range(0, n, _CHUNK):
-            p = params[i, s:s + _CHUNK, :, None, None]      # [c, 8, 1, 1]
-            sax, say, sbx, sby, r, v = (p[:, j] for j in range(6))
-            dx, dy = sbx - sax, sby - say
-            len2 = dx * dx + dy * dy
-            t = torch.where(len2 > 0, ((px - sax) * dx + (py - say) * dy)
-                            / torch.clamp(len2, min=1e-8), 0.0)
-            t = torch.clamp(t, 0.0, 1.0)
-            ex = px - (sax + t * dx)
-            ey = py - (say + t * dy)
-            d2 = ex * ex + ey * ey
-            hit = (d2 <= r * r) & (v > 0)
-            cov |= hit.any(dim=0)
-        out[i] = cov.to(torch.float32)
+    px, py = _grid(0, width, dev), _grid(0, height, dev)
+    out = torch.zeros((params.shape[0], height, width), dtype=torch.float32,
+                      device=dev)
+    for i in range(params.shape[0]):
+        out[i] = _coverage(params[i], px, py).to(torch.float32)
     return out
 
 
-def _launch(params, height, width):
-    """K3 on params [B, N, 8]."""
-    if params.dtype != torch.float32 or params.ndim != 3 \
-            or params.shape[2] != 8:
-        raise ValueError(f'splat: params must be f32 [B, N, 8], got '
+def drop_boxes(params: torch.Tensor) -> torch.Tensor:
+    """Each drop's box inflated by r plus one pixel, as the kernels' cull
+    computes it (``drop_box`` in ``csrc/splat.cu``): int64 [..., N, 4] of
+    (x0, x1, y0, y1), inclusive, unclipped. A pixel the drop covers lies
+    inside it."""
+    ax, ay, bx, by, r = (params[..., j] for j in range(5))
+    return torch.stack([(torch.minimum(ax, bx) - r).floor() - 1,
+                        (torch.maximum(ax, bx) + r).ceil() + 1,
+                        (torch.minimum(ay, by) - r).floor() - 1,
+                        (torch.maximum(ay, by) + r).ceil() + 1],
+                       dim=-1).to(torch.int64)
+
+
+def splat_coverage_tiles_plain(params: torch.Tensor, height: int, width: int,
+                               tile: tuple[int, int]) -> torch.Tensor:
+    """K3/K4's tile walk in plain torch, [B, N, 8] → [B, H, W] float 0/1:
+    each ``tile`` (rows, columns; ``BATCH_TILE`` or ``IMAGE_TILE``), clipped
+    to the image, keeps the valid drops whose :func:`drop_boxes` box meets
+    it and tests its pixels against those only. It equals
+    :func:`splat_coverage_plain` bit for bit when the cull drops no drop
+    that covers a pixel of the tile."""
+    th, tw = tile
+    dev = params.device
+    boxes, valid = drop_boxes(params), params[..., 5] > 0
+    out = torch.empty((params.shape[0], height, width), dtype=torch.float32,
+                      device=dev)
+    for i in range(params.shape[0]):
+        x0, x1, y0, y1 = boxes[i].unbind(-1)
+        for ty in range(0, height, th):
+            ty1 = min(ty + th, height)
+            for tx in range(0, width, tw):
+                tx1 = min(tx + tw, width)
+                keep = (valid[i] & (x1 >= tx) & (x0 < tx1)
+                        & (y1 >= ty) & (y0 < ty1))
+                out[i, ty:ty1, tx:tx1] = _coverage(
+                    params[i][keep], _grid(tx, tx1, dev), _grid(ty, ty1, dev))
+    return out
+
+
+def _check_params(params, ndim, what):
+    if params.dtype != torch.float32 or params.ndim != ndim \
+            or params.shape[-1] != 8:
+        shape = '[B, N, 8]' if ndim == 3 else '[N, 8]'
+        raise ValueError(f'{what}: params must be f32 {shape}, got '
                          f'{params.dtype} {tuple(params.shape)}')
-    b, n, _ = params.shape
-    params = params.contiguous()
-    mask = torch.zeros((b, height, width), dtype=torch.float32,
-                       device=params.device)
-    if b * n == 0:
-        return mask
-    lib = _build.load('splat')
-    lib.splat_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    lib.splat_launch.restype = ctypes.c_int
-    rc = lib.splat_launch(_build.ptr(params), _build.ptr(mask), b, n,
-                          height, width, _build.stream_ptr(params))
-    _build.check(lib, rc, 'splat_coverage_batched')
-    splat_coverage_batched.launches += 1
+
+
+def _launch(wrapper, symbol, params, mask, *dims):
+    """``symbol`` of ``csrc/splat.cu`` on ``params`` into ``mask`` (the
+    kernel writes every pixel), counted on ``wrapper``; an empty mask
+    launches nothing."""
+    if mask.numel():
+        argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims)
+                    + [ctypes.c_void_p])
+        rc = _build.entry('splat', symbol, argtypes)(
+            _build.ptr(params), _build.ptr(mask), *dims,
+            _build.stream_ptr(params))
+        _build.check(_build.load('splat'), rc, wrapper.__name__)
+        wrapper.launches += 1
     return mask
 
 
 def splat_coverage_batched(params: torch.Tensor, height: int,
                            width: int) -> torch.Tensor:
-    """Union coverage masks [B, H, W] (float 0/1) of the capsules in
+    """K3: union coverage masks [B, H, W] (float 0/1) of the capsules in
     ``params`` [B, N, 8]. CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    if params.is_cuda:
-        return _launch(params, height, width)
-    return splat_coverage_plain(params, height, width)
+    if not params.is_cuda:
+        return splat_coverage_plain(params, height, width)
+    _check_params(params, 3, 'splat_coverage_batched')
+    b, n, _ = params.shape
+    mask = torch.empty((b, height, width), dtype=torch.float32,
+                       device=params.device)
+    return _launch(splat_coverage_batched, 'splat_tiles_launch',
+                   _build.operand(params), mask, b, n, height, width)
 
 
 splat_coverage_batched.launches = 0
@@ -119,36 +189,19 @@ def uses_windowed(height: int, width: int) -> bool:
             <= _WINDOWED_MAX_PIXELS)
 
 
-def _launch_one(params, height, width, entry, what):
-    if params.dtype != torch.float32 or params.ndim != 2 \
-            or params.shape[1] != 8:
-        raise ValueError(f'{what}: params must be f32 [N, 8], got '
-                         f'{params.dtype} {tuple(params.shape)}')
-    params = params.contiguous()
-    mask = torch.empty((height, width), dtype=torch.float32,
-                       device=params.device)
-    lib = _build.load('splat')
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(params), _build.ptr(mask), params.shape[0], height,
-            width, _build.stream_ptr(params))
-    _build.check(lib, rc, what)
-    return mask
-
-
 def splat_coverage_windowed(params: torch.Tensor, height: int,
                             width: int) -> torch.Tensor:
-    """K4: the mask [H, W] (float 0/1) of one image's capsules [N, 8], one
-    block per drop. CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
-    if params.is_cuda:
-        mask = _launch_one(params, height, width, 'splat_windowed_launch',
-                           'splat_coverage_windowed')
-        splat_coverage_windowed.launches += 1
-        return mask
-    return splat_coverage_plain(params[None], height, width)[0]
+    """K4: the mask [H, W] (float 0/1) of one image's capsules [N, 8], K3's
+    tile kernel at B = 1. CUDA tensors launch the kernel, CPU tensors take
+    the plain version."""
+    if not params.is_cuda:
+        return splat_coverage_plain(params[None], height, width)[0]
+    _check_params(params, 2, 'splat_coverage_windowed')
+    mask = torch.empty((height, width), dtype=torch.float32,
+                       device=params.device)
+    return _launch(splat_coverage_windowed, 'splat_tiles_launch',
+                   _build.operand(params), mask, 1, params.shape[0], height,
+                   width)
 
 
 splat_coverage_windowed.launches = 0
@@ -159,12 +212,13 @@ def splat_coverage_tiled(params: torch.Tensor, height: int,
     """K5: the mask [H, W] (float 0/1) of one image's capsules [N, 8], one
     block per 32×32 tile. CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    if params.is_cuda:
-        mask = _launch_one(params, height, width, 'splat_tiled_launch',
-                           'splat_coverage_tiled')
-        splat_coverage_tiled.launches += 1
-        return mask
-    return splat_coverage_plain(params[None], height, width)[0]
+    if not params.is_cuda:
+        return splat_coverage_plain(params[None], height, width)[0]
+    _check_params(params, 2, 'splat_coverage_tiled')
+    mask = torch.empty((height, width), dtype=torch.float32,
+                       device=params.device)
+    return _launch(splat_coverage_tiled, 'splat_tiled_launch',
+                   params.contiguous(), mask, params.shape[0], height, width)
 
 
 splat_coverage_tiled.launches = 0

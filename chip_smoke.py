@@ -12,14 +12,17 @@ Phases, each printing one JSON line:
    ``awsegbench_torch/csrc`` is built with nvcc (in parallel) and timed.
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the eval path's shapes, in f32 and bf16 (K3 has no bf16
-   mode and must match bit for bit; K1's bf16 output must also lie within
-   2^-7·Σ p|v| of f32 math on its inputs), plus K1 and K2 at a few ragged
-   shapes off the path; median times of the kernel, the plain version and,
-   for attention, ``F.scaled_dot_product_attention`` (a yardstick only;
-   the port never calls it). K1 and K6 also get the exponential floor
+   mode and must match bit for bit, at the path's shape and at the ragged
+   ``SPLAT_RAGGED`` cases, where K4 and K5 must match too; K1's bf16
+   output must also lie within 2^-7·Σ p|v| of f32 math on its inputs),
+   plus K1 and K2 at a few ragged shapes off the path; median times of the
+   kernel, the plain version and, for attention,
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+   calls it). K1 and K6 also get the exponential floor
    (``exp_bound_ms``: one ex2 per score on the special-function unit) and
    device times by the profiler, theirs and SDPA's (``device_ms``,
-   ``library_device_ms``: ``ms`` less the host's time to launch them).
+   ``library_device_ms``: ``ms`` less the host's time to launch them);
+   K3–K5 get the device time of every device op of one call.
 3. main path: the faithful SegFormer-B0 + DeepLabV3+ (ResNet-50) ensemble
    eval step at 512×1024, bf16, batch 8, mixed weather 0–4: 2 warm-up and
    5 timed batches; images/s, and each kernel's launch count in that run
@@ -69,7 +72,8 @@ Phases, each printing one JSON line:
 8. single image: ``apply_weather_effect`` for rain and snow at 512×1024
    (K4) and 2048×1024 (K5), counted (K4 and K5 must launch); the uint8
    images card vs CPU within one step and 99.9% exact; K4 and K5 against
-   their plain version bit for bit, timed beside it and their bounds.
+   their plain version bit for bit, timed (events and device time) beside
+   it and their bounds.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -286,12 +290,95 @@ def seg_bounds(b, h, w, c, nc, r):
     return (*bound(flops, nbytes, BF16_PEAK), kron / BF16_PEAK * 1e3)
 
 
+RADII = (0.5, 1.5, 1.0, 4.0)        # rain streaks' and snow flakes' radii
+# (images, H, W, drop slots, valid share, integer coordinates) of the splat
+# checks off the paths' shapes: ragged sizes, 1×W and H×1, one and three
+# images, no slot, no valid slot, more slots than one cull round (512)
+SPLAT_RAGGED = ((3, 37, 101, 40, 0.7, True), (1, 37, 101, 40, 0.7, False),
+                (1, 1, 300, 20, 1.0, True), (3, 300, 1, 20, 1.0, False),
+                (3, 64, 256, 0, 1.0, True), (2, 64, 256, 16, 0.0, True),
+                (3, 200, 700, 600, 0.8, True))
+
+
+def splat_mixed_batch(dev, g):
+    """K3's params at the eval path's shape: 8 images at 512×1024, rain
+    and snow alternating, with full drop counts (500 rain drops, 200 of
+    the 500 snow slots valid)."""
+    import torch
+    from awsegbench_torch.ops import splat
+    from awsegbench_torch.weather.corruption import draw_corruption
+
+    wid = torch.tensor([2, 3] * (B // 2), device=dev)
+    dr = draw_corruption(wid, H, W, g)
+    rain = (wid == 2)[:, None]
+    return splat.pack_params(
+        torch.where(rain, dr['rain_ax'], dr['snow_x']),
+        torch.where(rain, dr['rain_ay'], dr['snow_y']),
+        torch.where(rain, dr['rain_bx'], dr['snow_x']),
+        torch.where(rain, dr['rain_by'], dr['snow_y']),
+        torch.where(rain, dr['rain_radius'], dr['snow_radius']),
+        torch.where(rain, True, torch.arange(500, device=dev)[None] < 200))
+
+
+def check_splat(name, got, want, covered=True):
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or (covered and not got.any()):
+        raise AssertionError(f'{name}: masks differ in '
+                             f'{int((got != want).sum())} pixels')
+
+
+def splat_bound(params, h, w) -> dict:
+    """The splat kernels' bound: the mask written once and the params read
+    once, against 20 flops per hit test the data needs (each valid drop's
+    inflated box, clipped to the image)."""
+    from awsegbench_torch.ops import splat
+    x0, x1, y0, y1 = splat.drop_boxes(params).unbind(-1)
+    area = ((x1.clamp(max=w - 1) - x0.clamp(min=0) + 1).clamp(min=0)
+            * (y1.clamp(max=h - 1) - y0.clamp(min=0) + 1).clamp(min=0))
+    n_tests = float((area * (params[..., 5] > 0)).sum())
+    images = params.shape[0] if params.ndim == 3 else 1
+    ms, by = bound(20 * n_tests, images * h * w * 4 + params.numel() * 4,
+                   F32_PEAK)
+    return {'bound_ms': ms, 'bound_by': by}
+
+
+def splat_ragged(dev, g) -> int:
+    """K3 (batched), K4 (each image alone) and K5 against the plain mask,
+    bit for bit, at ``SPLAT_RAGGED``: drops anywhere within 5 px of the
+    image (so boxes cross tile and image borders), 30% zero-length, the
+    four production radii. Returns the number of cases."""
+    import torch
+    from awsegbench_torch.ops import splat
+    for b, h, w, n, share, integer in SPLAT_RAGGED:
+        def u(lo, hi):
+            v = lo + (hi - lo) * torch.rand((b, n), generator=g, device=dev)
+            return v.round() if integer else v
+        ax, ay = u(-5, w + 5), u(-5, h + 5)
+        circle = torch.rand((b, n), generator=g, device=dev) < 0.3
+        bx = torch.where(circle, ax, ax + u(-20, 20))
+        by = torch.where(circle, ay, ay + u(-20, 20))
+        r = torch.tensor(RADII, device=dev)[
+            torch.randint(0, 4, (b, n), generator=g, device=dev)]
+        valid = torch.rand((b, n), generator=g, device=dev) < share
+        params = splat.pack_params(ax, ay, bx, by, r, valid)
+        want = splat.splat_coverage_plain(params, h, w)
+        what = f'{b}x{h}x{w}, {n} slots'
+        check_splat(f'splat_coverage_batched {what}',
+                    splat.splat_coverage_batched(params, h, w), want, False)
+        for i in range(b):
+            for fn in (splat.splat_coverage_windowed,
+                       splat.splat_coverage_tiled):
+                check_splat(f'{fn.__name__} {what}', fn(params[i], h, w),
+                            want[i], False)
+    return len(SPLAT_RAGGED)
+
+
 def phase_kernels(dev):
     """K1–K3 against their plain versions; returns the kernels' records."""
     import torch
     import torch.nn.functional as F
     from awsegbench_torch.ops import attention, splat
-    from awsegbench_torch.weather.corruption import draw_corruption
 
     g = torch.Generator(device=dev).manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
@@ -375,40 +462,21 @@ def phase_kernels(dev):
     recs['seg_core'] = seg_head_kernel(dev, g)
 
     # K3: 8 mixed rain/snow images at 512×1024 with full drop counts
-    wid = torch.tensor([2, 3] * (B // 2), device=dev)
-    dr = draw_corruption(wid, H, W, g)
-    rain = (wid == 2)[:, None]
-    params = splat.pack_params(
-        torch.where(rain, dr['rain_ax'], dr['snow_x']),
-        torch.where(rain, dr['rain_ay'], dr['snow_y']),
-        torch.where(rain, dr['rain_bx'], dr['snow_x']),
-        torch.where(rain, dr['rain_by'], dr['snow_y']),
-        torch.where(rain, dr['rain_radius'], dr['snow_radius']),
-        torch.where(rain, True, torch.arange(500, device=dev)[None] < 200))
+    params = splat_mixed_batch(dev, g)
     got = splat.splat_coverage_batched(params, H, W)
-    want = splat.splat_coverage_plain(params, H, W)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want) or not got.any():
-        raise AssertionError(f'splat: masks differ in '
-                             f'{int((got != want).sum())} pixels')
-    # hit tests the kernel runs: the inflated, clipped box of each valid drop
-    lo_x = (torch.minimum(params[..., 0], params[..., 2]) - params[..., 4]).floor() - 1
-    hi_x = (torch.maximum(params[..., 0], params[..., 2]) + params[..., 4]).ceil() + 1
-    lo_y = (torch.minimum(params[..., 1], params[..., 3]) - params[..., 4]).floor() - 1
-    hi_y = (torch.maximum(params[..., 1], params[..., 3]) + params[..., 4]).ceil() + 1
-    area = ((hi_x.clamp(max=W - 1) - lo_x.clamp(min=0) + 1)
-            * (hi_y.clamp(max=H - 1) - lo_y.clamp(min=0) + 1))
-    n_tests = float((area * (params[..., 5] > 0)).sum())
-    bms, by = bound(20 * n_tests, B * H * W * 4 + params.numel() * 4, F32_PEAK)
+    check_splat('splat_coverage_batched', got,
+                splat.splat_coverage_plain(params, H, W))
     recs['splat_coverage_batched'] = dict(
         name='splat_coverage_batched', route='cuda',
         source='awsegbench_torch/csrc/splat.cu',
         replaces='awsegbench/ops/splat.py:216', max_abs_err=0.0,
         ms=time_ms(lambda: splat.splat_coverage_batched(params, H, W)),
+        device_ms=device_ms(
+            lambda: splat.splat_coverage_batched(params, H, W), ('',)),
         plain_ms=time_ms(lambda: splat.splat_coverage_plain(params, H, W),
                          reps=3, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        covered=float(got.mean()))
+        **splat_bound(params, H, W), library_ms=None,
+        covered=float(got.mean()), ragged_cases=splat_ragged(dev, g))
     return recs
 
 
@@ -1342,28 +1410,16 @@ def phase_single_image(dev):
                                    d['rain_valid'])[0]
         fn = getattr(splat, name)
         got = fn(params, *hw)
-        want = splat.splat_coverage_plain(params[None], *hw)[0]
-        torch.cuda.synchronize()
-        if not torch.equal(got, want) or not got.any():
-            raise AssertionError(f'{name}: masks differ in '
-                                 f'{int((got != want).sum())} pixels')
-        # hit tests the data needs: each valid drop's inflated, clipped box
-        lo_x = (torch.minimum(params[:, 0], params[:, 2]) - params[:, 4]).floor() - 1
-        hi_x = (torch.maximum(params[:, 0], params[:, 2]) + params[:, 4]).ceil() + 1
-        lo_y = (torch.minimum(params[:, 1], params[:, 3]) - params[:, 4]).floor() - 1
-        hi_y = (torch.maximum(params[:, 1], params[:, 3]) + params[:, 4]).ceil() + 1
-        area = ((hi_x.clamp(max=hw[1] - 1) - lo_x.clamp(min=0) + 1)
-                * (hi_y.clamp(max=hw[0] - 1) - lo_y.clamp(min=0) + 1))
-        n_tests = float((area * (params[:, 5] > 0)).sum())
-        bms, by = bound(20 * n_tests, hw[0] * hw[1] * 4 + params.numel() * 4,
-                        F32_PEAK)
+        check_splat(name, got, splat.splat_coverage_plain(params[None],
+                                                          *hw)[0])
         recs[name] = dict(
             name=name, route='cuda', source='awsegbench_torch/csrc/splat.cu',
             replaces=f'awsegbench/ops/splat.py:{line}', max_abs_err=0.0,
             ms=time_ms(lambda: fn(params, *hw)),
+            device_ms=device_ms(lambda: fn(params, *hw), ('',)),
             plain_ms=time_ms(lambda: splat.splat_coverage_plain(
                 params[None], *hw), reps=3, warmup=1),
-            bound_ms=bms, bound_by=by, library_ms=None, hw=list(hw),
+            **splat_bound(params, *hw), library_ms=None, hw=list(hw),
             covered=float(got.mean()))
     emit({'phase': 'single_image', 'launches': launches, 'u8_exact': exact})
     return recs, launches
