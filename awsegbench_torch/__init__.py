@@ -12,8 +12,9 @@ plain PyTorch version of the same function, a CUDA tensor launches the
 kernel (or raises).
 
 Entry points (``models.factory.create_model``, ``eval.step.EvalStep``,
-``train.step.TrainStep``, ``weather.corruption.corrupt_batch``) run on
-``device='cuda'`` unless the caller asks for ``device='cpu'``.
+``eval.evaluator.Evaluator``, ``train.step.TrainStep``,
+``weather.corruption.corrupt_batch``) run on ``device='cuda'`` unless the
+caller asks for ``device='cpu'``.
 """
 
 from ._device import resolve_device

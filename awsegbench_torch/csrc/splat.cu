@@ -1,33 +1,29 @@
 // Rain/snow splat: the union coverage mask of up to N capsules (rain streaks
 // are segments with radius 0.5 or 1.5, snow flakes are circles with radius
-// 1 or 4). Two kernels, one hit test:
-//
-// * splat_tiles_kernel, one body for K3 and K4. K3, a batch of images,
-//   replaces the TPU kernel awsegbench/ops/splat.py::_splat_kernel_batched
-//   (pallas_call in splat_coverage_batched), which held one image's mask in
-//   VMEM and merged 40×256 windows of 32 drops at a time after an XLA-side
-//   compaction and y-sort of the valid drops. K4, one image of at most
-//   1 Mpx (padded as the TPU dispatch pads), replaces _splat_kernel_windowed
-//   (pallas_call in splat_coverage_pallas); it is the same launch with
-//   B = 1. Blocks on Hopper run in parallel and in no order, and the mask
-//   write is the cost, so each pixel is written exactly once and nothing
-//   zero-fills the mask first: one block per (tile, image) culls the
-//   image's N drop slots (valid, and the inflated box meets the tile),
-//   compacts the kept drops into shared memory with a warp ballot (the
-//   union is order-free), lets each warp test the pixels of one kept
-//   drop's box at a time (a lane a pixel), marking hits in a byte map of
-//   the tile in shared memory, and then stores the tile with one 16-byte
-//   store per 4 columns (scalar stores when W % 4 != 0). A tile that keeps
-//   no drop stores zeros and tests nothing. All blocks of a batch fit the
-//   card at once, so a block's stores wait for its cull and tests: large
-//   tiles (fewer culls of the params) measured fastest (PERF.md §6).
-// * splat_tiled_kernel (K5), one image above 1 Mpx. Replaces _splat_kernel
-//   (pallas_call in splat_coverage_pallas): tile-parallel with a per-tile
-//   bounding-box cull. One block per 32×32 tile walks the drops in chunks
-//   of 256 (one per thread), keeps those whose box meets the tile in shared
-//   memory, tests its pixels against them and writes every pixel of the
-//   tile once, so the mask needs no zero-fill. The TPU's 256×512 tiles were
-//   a VMEM layout; 32×32 keeps 2048 blocks in flight at 2048×1024.
+// 1 or 4). One kernel, splat_tiles_kernel, serves K3, K4 and K5, each at its
+// own tile shape. K3, a batch of images, replaces the TPU kernel
+// awsegbench/ops/splat.py::_splat_kernel_batched (pallas_call in
+// splat_coverage_batched), which held one image's mask in VMEM and merged
+// 40×256 windows of 32 drops at a time after an XLA-side compaction and
+// y-sort of the valid drops. K4, one image of at most 1 Mpx (padded as the
+// TPU dispatch pads), replaces _splat_kernel_windowed (pallas_call in
+// splat_coverage_pallas); it is the same launch with B = 1. Blocks on Hopper
+// run in parallel and in no order, and the mask write is the cost, so each
+// pixel is written exactly once and nothing zero-fills the mask first: one
+// block per (tile, image) culls the image's N drop slots (valid, and the
+// inflated box meets the tile), compacts the kept drops into shared memory
+// with a warp ballot (the union is order-free), lets each warp test the
+// pixels of one kept drop's box at a time (a lane a pixel), marking hits in a
+// byte map of the tile in shared memory, and then stores the tile with one
+// 16-byte store per 4 columns (scalar stores when W % 4 != 0). A tile that
+// keeps no drop stores zeros and tests nothing. All blocks of a batch fit the
+// card at once, so a block's stores wait for its cull and tests: large tiles
+// (fewer culls of the params) measured fastest (PERF.md §6). K5, one image
+// above 1 Mpx, replaces _splat_kernel (pallas_call in splat_coverage_pallas,
+// whose 256×512 tiles were a VMEM layout): the same body with its own larger
+// tile, so that the few hundred drops of a 2 Mpx image are culled by fewer
+// blocks; at that size most tiles keep no drop and the mask write is the
+// cost.
 //
 // The hit test is _segment_coverage's (awsegbench/weather/corruption.py),
 // in its operation order, and computes the exact union d2 <= r² (the TPU's
@@ -39,22 +35,23 @@
 // its plain version bit for bit.
 //
 // Bound on the H100: the mask write (H·W·4 bytes per image) dominates; the
-// drops touch a few hundred pixels each, so both kernels are memory-bound.
-// Each K3/K4 block also reads the image's N·32 bytes of params (from L2
-// after the first block of the image).
+// drops touch a few hundred pixels each, so the kernel is memory-bound.
+// Each block also reads the image's N·32 bytes of params (from L2 after
+// the first block of the image).
 //
-// params: [B, N, 8] (K3, K4 with B = 1) or [N, 8] (K5) f32 rows (ax, ay,
-// bx, by, radius, valid, 0, 0) in pixel coordinates; mask: [B, H, W] or
-// [H, W] f32.
+// params: [B, N, 8] (K3; K4 and K5 with B = 1) f32 rows (ax, ay, bx, by,
+// radius, valid, 0, 0) in pixel coordinates; mask: [B, H, W] f32.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-// K3/K4's tiles (rows, columns), measured by scripts/tune_splat_tiles.py:
-// 128×64 for a batch, 16×128 for one image (where the batch's tiles would
-// give 64 blocks to 132 SMs).
+// The tiles (rows, columns), measured by scripts/tune_splat_tiles.py:
+// 128×64 for a batch (K3), 16×128 for one image of at most 1 Mpx (K4,
+// where the batch's tiles would give 64 blocks to 132 SMs) and 32×128 for
+// one image above it (K5: 512 blocks at 2 Mpx; 16×128 culls the params
+// twice as often and measured 1.3× slower, 64×128 to 128×128 no faster).
 #ifndef SPLAT_BATCH_ROWS
 #define SPLAT_BATCH_ROWS 128
 #define SPLAT_BATCH_COLS 64
@@ -63,11 +60,13 @@ namespace {
 #define SPLAT_IMAGE_ROWS 16
 #define SPLAT_IMAGE_COLS 128
 #endif
-constexpr int kThreads = 256;  // K3, K4: 8 warps
+#ifndef SPLAT_LARGE_ROWS
+#define SPLAT_LARGE_ROWS 32
+#define SPLAT_LARGE_COLS 128
+#endif
+constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kCull = 512;     // drop slots culled per round (2 a thread)
-constexpr int kTile = 32;          // K5: 32×32 pixels per block
-constexpr int kTileThreads = 256;  // K5: 8 rows of 32 at a time
 
 // The drop's bounding box inflated by r plus one pixel (unclipped).
 struct Box {
@@ -101,7 +100,7 @@ struct Kept {
   Box box;
 };
 
-// K3/K4's shared state: the kept drops of the tile and its byte map.
+// The shared state: the kept drops of the tile and its byte map.
 template <int TR, int TC>
 struct TileState {
   Kept kept[kCull];
@@ -182,7 +181,7 @@ __device__ __forceinline__ void cover(State& st, int tx0, int tx1, int ty0,
   }
 }
 
-// K3 and K4: one block per (TR×TC tile, image). The block culls the
+// K3, K4 and K5: one block per (TR×TC tile, image). The block culls the
 // image's drop slots (kCull at a time), marks the tile's covered pixels in
 // the map, then each thread turns 4 bytes of the map at a time into one
 // 16-byte store of the mask (scalar stores when W % 4 != 0).
@@ -236,50 +235,6 @@ int launch_tiles(const float* params, float* mask, int b, int n, int h,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kTileThreads)
-    splat_tiled_kernel(const float* __restrict__ params,
-                       float* __restrict__ mask, int n, int h, int w) {
-  __shared__ float kept[kTileThreads][5];
-  __shared__ int n_kept;
-  const int tx0 = blockIdx.x * kTile, ty0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int col = tx0 + (tid & (kTile - 1));
-  const int row0 = ty0 + tid / kTile;
-  constexpr int kRows = kTile * kTile / kTileThreads;
-  bool covered[kRows] = {};
-
-  for (int d0 = 0; d0 < n; d0 += kTileThreads) {
-    if (tid == 0) n_kept = 0;
-    __syncthreads();
-    const int d = d0 + tid;
-    if (d < n) {  // cull: keep valid drops whose box meets the tile
-      const float* prm = params + (size_t)d * 8;
-      const Box bx = drop_box(prm);
-      if (prm[5] > 0.f && bx.x1 >= tx0 && bx.x0 < tx0 + kTile &&
-          bx.y1 >= ty0 && bx.y0 < ty0 + kTile) {
-        const int slot = atomicAdd(&n_kept, 1);  // the union is order-free
-#pragma unroll
-        for (int k = 0; k < 5; ++k) kept[slot][k] = prm[k];
-      }
-    }
-    __syncthreads();
-    for (int s = 0; s < n_kept; ++s) {
-      const float *kp = kept[s];
-#pragma unroll
-      for (int k = 0; k < kRows; ++k)
-        covered[k] = covered[k] || hit((float)col, (float)(row0 + 8 * k),
-                                       kp[0], kp[1], kp[2], kp[3], kp[4]);
-    }
-    __syncthreads();  // kept is rewritten by the next chunk
-  }
-  if (col < w) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k)
-      if (row0 + 8 * k < h)
-        mask[(size_t)(row0 + 8 * k) * w + col] = covered[k] ? 1.0f : 0.0f;
-  }
-}
-
 }  // namespace
 
 // K3 and K4: params [b, n, 8] → mask [b, h, w] (K4: b = 1); writes every
@@ -294,13 +249,12 @@ extern "C" int splat_tiles_launch(const void* params, void* mask, int b,
                       (cudaStream_t)stream);
 }
 
-// K5: params [n, 8] → mask [h, w]; writes every pixel.
-extern "C" int splat_tiled_launch(const void* params, void* mask, int n,
+// K5: params [n, 8] → mask [h, w], one image above 1 Mpx; writes every
+// pixel.
+extern "C" int splat_large_launch(const void* params, void* mask, int n,
                                   int h, int w, void* stream) {
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
-  splat_tiled_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)params, (float*)mask, n, h, w);
-  return (int)cudaGetLastError();
+  return launch_tiles<SPLAT_LARGE_ROWS, SPLAT_LARGE_COLS>(
+      (const float*)params, (float*)mask, 1, n, h, w, (cudaStream_t)stream);
 }
 
 extern "C" const char* awseg_error_string(int e) {

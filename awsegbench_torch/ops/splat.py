@@ -1,19 +1,15 @@
 """Rain/snow splat masks (counterpart of ``awsegbench/ops/splat.py``).
 
 The union coverage mask of up to N capsules: pixel P is covered by segment
-AB with radius r iff ``dist(P, AB)² ≤ r²``. Two kernels of ``csrc/splat.cu``
-compute it:
-
-* ``splat_tiles_kernel``, one block per (tile, image): it culls
-  the image's drops to those whose inflated box (:func:`drop_boxes`) meets
-  the tile and writes each pixel of the tile once, so the mask is allocated
-  with ``torch.empty`` and never zero-filled. It serves
-  :func:`splat_coverage_batched` (K3, a batch [B, N, 8] → [B, H, W]) and
-  :func:`splat_coverage_windowed` (K4, one image [N, 8] → [H, W], the same
-  launch at B = 1). Its tiles are ``BATCH_TILE`` for a batch and
-  ``IMAGE_TILE`` for one image;
-* ``splat_tiled_kernel`` serves :func:`splat_coverage_tiled` (K5, one image,
-  one block per 32×32 tile).
+AB with radius r iff ``dist(P, AB)² ≤ r²``. One kernel of ``csrc/splat.cu``
+computes it, ``splat_tiles_kernel``, one block per (tile, image): it culls
+the image's drops to those whose inflated box (:func:`drop_boxes`) meets
+the tile and writes each pixel of the tile once, so the mask is allocated
+with ``torch.empty`` and never zero-filled. It serves
+:func:`splat_coverage_batched` (K3, a batch [B, N, 8] → [B, H, W], tiles of
+``BATCH_TILE``), :func:`splat_coverage_windowed` (K4, one image [N, 8] →
+[H, W] of at most 1 Mpx, ``IMAGE_TILE``) and :func:`splat_coverage_tiled`
+(K5, one image above 1 Mpx, ``LARGE_IMAGE_TILE``).
 
 :func:`splat_coverage` dispatches one image as the JAX package's
 ``splat_coverage_pallas`` does: up to 1 Mpx after its padding to its 40×256
@@ -21,7 +17,7 @@ windows K4, above that K5.
 
 On a CPU tensor each runs :func:`splat_coverage_plain`, the chunked
 distance test of the JAX package's ``_segment_coverage``.
-:func:`splat_coverage_tiles_plain` is the plain model of K3/K4's tile walk
+:func:`splat_coverage_tiles_plain` is the plain model of the kernel's tile walk
 (cull, then each tile's pixels against its kept drops), which the tests
 hold equal to it. The kernels use the same operation order and are built
 without multiply-add contraction, so every mask equals its plain version
@@ -51,8 +47,9 @@ def pack_params(ax, ay, bx, by, radius, valid) -> torch.Tensor:
                         zeros, zeros], dim=-1).to(torch.float32)
 
 
-# K3/K4's tiles, rows × columns (csrc/splat.cu): a batch's, one image's
-BATCH_TILE, IMAGE_TILE = (128, 64), (16, 128)
+# The kernel's tiles, rows × columns (csrc/splat.cu): a batch's (K3), one
+# image's up to 1 Mpx (K4) and above it (K5)
+BATCH_TILE, IMAGE_TILE, LARGE_IMAGE_TILE = (128, 64), (16, 128), (32, 128)
 
 
 def _coverage(params: torch.Tensor, px: torch.Tensor,
@@ -109,8 +106,9 @@ def drop_boxes(params: torch.Tensor) -> torch.Tensor:
 
 def splat_coverage_tiles_plain(params: torch.Tensor, height: int, width: int,
                                tile: tuple[int, int]) -> torch.Tensor:
-    """K3/K4's tile walk in plain torch, [B, N, 8] → [B, H, W] float 0/1:
-    each ``tile`` (rows, columns; ``BATCH_TILE`` or ``IMAGE_TILE``), clipped
+    """The kernel's tile walk in plain torch, [B, N, 8] → [B, H, W] float
+    0/1: each ``tile`` (rows, columns; ``BATCH_TILE``, ``IMAGE_TILE`` or
+    ``LARGE_IMAGE_TILE``), clipped
     to the image, keeps the valid drops whose :func:`drop_boxes` box meets
     it and tests its pixels against those only. It equals
     :func:`splat_coverage_plain` bit for bit when the cull drops no drop
@@ -209,16 +207,17 @@ splat_coverage_windowed.launches = 0
 
 def splat_coverage_tiled(params: torch.Tensor, height: int,
                          width: int) -> torch.Tensor:
-    """K5: the mask [H, W] (float 0/1) of one image's capsules [N, 8], one
-    block per 32×32 tile. CUDA tensors launch the kernel, CPU tensors take
-    the plain version."""
+    """K5: the mask [H, W] (float 0/1) of one image's capsules [N, 8], K3's
+    tile kernel at B = 1 with ``LARGE_IMAGE_TILE``. CUDA tensors launch the
+    kernel, CPU tensors take the plain version."""
     if not params.is_cuda:
         return splat_coverage_plain(params[None], height, width)[0]
     _check_params(params, 2, 'splat_coverage_tiled')
     mask = torch.empty((height, width), dtype=torch.float32,
                        device=params.device)
-    return _launch(splat_coverage_tiled, 'splat_tiled_launch',
-                   params.contiguous(), mask, params.shape[0], height, width)
+    return _launch(splat_coverage_tiled, 'splat_large_launch',
+                   _build.operand(params), mask, params.shape[0], height,
+                   width)
 
 
 splat_coverage_tiled.launches = 0

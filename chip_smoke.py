@@ -70,10 +70,22 @@ Phases, each printing one JSON line:
    ill-conditioned at batch 2 (tests/test_torch_train_step.py), so each of
    its leaves is held within 0.1 relative L2 error.
 8. single image: ``apply_weather_effect`` for rain and snow at 512×1024
-   (K4) and 2048×1024 (K5), counted (K4 and K5 must launch); the uint8
-   images card vs CPU within one step and 99.9% exact; K4 and K5 against
-   their plain version bit for bit, timed (events and device time) beside
-   it and their bounds.
+   (K4), 1024×2048 (Cityscapes' height and width) and 2048×1024 (K5),
+   counted (K4 and K5 must launch); the uint8 images card vs CPU within one
+   step and 99.9% exact; K4 and K5 against their plain version bit for
+   bit, timed (events and device time) beside it and their bounds, K5 at
+   both of its shapes.
+9. evaluator: the robustness sweep (``Evaluator``) on the main path's
+   model at 512×1024, batch 8, bf16, over 10 synthetic batches (weather
+   ids ``(i + j) % 5``, random labels, the first rows ignored), in
+   ``histogram`` mode (counted: K1–K3 must launch) and in ``exact`` mode:
+   every result key present and finite, each weather's confusion matrix
+   holding that weather's non-ignored pixels, the ECE bins and the AUROC
+   histogram every one of them, the exact AUROC within 1e-3 of the
+   histogram's; images/s, ms per batch and the metrics alone per batch.
+   Then card against CPU: an f32 sweep of 2 batches of 5 at 128×256 with
+   the same draws, confusion matrices within 0.1% of each weather's
+   pixels and mIoU, ECE and AUROC within 2e-3 of the CPU's.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -81,11 +93,11 @@ comparisons compare f32 arithmetic. Before the last line it prints the
 kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
-under ``launches_by_path``; the kernels with two designs add their
-``design`` per dtype and their per-design counts per path) and the
-card's ``nvidia-smi``
-name and power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
-check raises, and the script exits non-zero.
+(the evaluator's too) under ``launches_by_path``; the kernels with two
+designs add their ``design`` per dtype and their per-design counts per
+path) and the card's ``nvidia-smi`` name and power limit; the last line
+is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
+script exits non-zero.
 """
 
 import json
@@ -1108,6 +1120,8 @@ TRAIN_COUNTERS = ('sr_attention', 'splat_coverage_batched',
                   'seg_core_train_backward', 'd1_core_train',
                   'd1_core_train_backward', 'neighbor_pp_adjoint')
 SINGLE_COUNTERS = ('splat_coverage_windowed', 'splat_coverage_tiled')
+# K5's shapes: Cityscapes' height × width, then the same pixels upright
+K5_SHAPES = ((1024, 2048), (2048, 1024))
 
 
 def counters():
@@ -1366,10 +1380,11 @@ def phase_train_parity(dev):
 
 def phase_single_image(dev):
     """The single-image corruption API: ``apply_weather_effect`` for rain
-    and snow at 512×1024 (K4) and 2048×1024 (K5), counted; the uint8 images
-    card vs CPU within one step and 99.9% exact, as the eval parity phase
-    holds them; then K4 and K5 against their plain version on the card, bit
-    for bit, and timed. Returns (records, launches)."""
+    and snow at 512×1024 (K4), 1024×2048 (Cityscapes' height and width)
+    and 2048×1024 (K5), counted; the uint8 images card vs CPU within one
+    step and 99.9% exact, as the eval parity phase holds them; then K4 and
+    K5 against their plain version on the card, bit for bit, and timed (K5
+    at both of its shapes). Returns (records, launches)."""
     import torch
     from awsegbench_torch.ops import splat
     from awsegbench_torch.weather.corruption import (WEATHER_IDS,
@@ -1378,7 +1393,7 @@ def phase_single_image(dev):
 
     g = torch.Generator(device=dev).manual_seed(6)
     runs = []
-    for hw in ((H, W), (2048, 1024)):
+    for hw in ((H, W),) + K5_SHAPES:
         image = torch.randint(0, 256, (*hw, 3), generator=g, device=dev,
                               dtype=torch.uint8)
         for weather in ('rain', 'snow'):
@@ -1401,28 +1416,193 @@ def phase_single_image(dev):
             raise AssertionError(f'single image {weather} {hw}: card and CPU '
                                  f'differ (max {int(diff.max())})')
 
-    recs = {}
-    for (hw, weather, _, d), name, line in (
-            (runs[0], 'splat_coverage_windowed', 38),
-            (runs[2], 'splat_coverage_tiled', 90)):
-        params = splat.pack_params(d['rain_ax'], d['rain_ay'], d['rain_bx'],
-                                   d['rain_by'], d['rain_radius'],
-                                   d['rain_valid'])[0]
+    def rain_params(d):
+        return splat.pack_params(d['rain_ax'], d['rain_ay'], d['rain_bx'],
+                                 d['rain_by'], d['rain_radius'],
+                                 d['rain_valid'])[0]
+
+    def splat_record(name, line, rain_runs):
+        """The kernel's record at the first run's shape, with its device
+        time and bound at every shape of ``rain_runs``."""
         fn = getattr(splat, name)
-        got = fn(params, *hw)
-        check_splat(name, got, splat.splat_coverage_plain(params[None],
-                                                          *hw)[0])
-        recs[name] = dict(
+        by_hw = {}
+        for hw, _, _, d in rain_runs:
+            params = rain_params(d)
+            got = fn(params, *hw)
+            check_splat(f'{name} {hw}', got,
+                        splat.splat_coverage_plain(params[None], *hw)[0])
+            by_hw[f'{hw[0]}x{hw[1]}'] = dict(
+                device_ms=device_ms(lambda: fn(params, *hw), ('',)),
+                **splat_bound(params, *hw), covered=float(got.mean()))
+        hw, params = rain_runs[0][0], rain_params(rain_runs[0][3])
+        first = by_hw[f'{hw[0]}x{hw[1]}']
+        return dict(
             name=name, route='cuda', source='awsegbench_torch/csrc/splat.cu',
             replaces=f'awsegbench/ops/splat.py:{line}', max_abs_err=0.0,
             ms=time_ms(lambda: fn(params, *hw)),
-            device_ms=device_ms(lambda: fn(params, *hw), ('',)),
+            device_ms=first['device_ms'],
             plain_ms=time_ms(lambda: splat.splat_coverage_plain(
                 params[None], *hw), reps=3, warmup=1),
-            **splat_bound(params, *hw), library_ms=None, hw=list(hw),
-            covered=float(got.mean()))
-    emit({'phase': 'single_image', 'launches': launches, 'u8_exact': exact})
+            bound_ms=first['bound_ms'], bound_by=first['bound_by'],
+            library_ms=None, hw=list(hw), by_hw=by_hw)
+
+    rain = [r for r in runs if r[1] == 'rain']
+    recs = {'splat_coverage_windowed': splat_record(
+                'splat_coverage_windowed', 38, rain[:1]),
+            'splat_coverage_tiled': splat_record(
+                'splat_coverage_tiled', 90, rain[1:])}
+    emit({'phase': 'single_image', 'launches': launches, 'u8_exact': exact,
+          'k5_by_hw': recs['splat_coverage_tiled']['by_hw']})
     return recs, launches
+
+
+EVAL_SWEEP_BATCHES = 10
+
+
+def schema_keys(exact: bool) -> set:
+    """The JAX package's result keys of a sweep over every weather."""
+    from awsegbench_torch.weather.corruption import WEATHER_CONDITIONS
+    adverse = WEATHER_CONDITIONS[1:]
+    return ({'overall_miou', 'expected_calibration_error',
+             'ensemble_disagreement_auroc', 'robustness_degradation_ratio',
+             '_throughput_images_per_sec', '_eval_seconds', '_num_images'}
+            | {f'{k}_{w}' for k in ('miou', 'ece') for w in WEATHER_CONDITIONS}
+            | {f'robustness_degradation_{w}' for w in adverse}
+            | ({'_auroc_histogram_estimate'} if exact else set()))
+
+
+def check_sweep(what, ev, res, loader, exact):
+    """Every schema key present and finite; each weather's confusion
+    matrix holds that weather's non-ignored pixels; the ECE bins and the
+    AUROC histogram hold every non-ignored pixel."""
+    import torch
+    if set(res) != schema_keys(exact) or not all(
+            math.isfinite(v) for v in res.values()):
+        raise AssertionError(f'{what}: result keys or values: {res}')
+    n_valid = torch.zeros(5, dtype=torch.int64)
+    for b in loader:
+        valid = (b['label'] != 255).sum(dim=(1, 2)).cpu()
+        n_valid.index_add_(0, b['weather_id'].cpu().long(), valid)
+    acc = ev.last_acc
+    if not (torch.equal(acc['cm'].sum(dim=(1, 2)), n_valid)
+            and int(acc['ece'][..., 0].sum()) == int(n_valid.sum())
+            and int(acc['auroc_hist'].sum()) == int(n_valid.sum())):
+        raise AssertionError(f'{what}: counts {acc["cm"].sum(dim=(1, 2))}, '
+                             f'ECE {acc["ece"][..., 0].sum()}, histogram '
+                             f'{acc["auroc_hist"].sum()} for {n_valid}')
+    return int(n_valid.sum())
+
+
+def sweep_loader(dev, g, n, b, h, w):
+    """``n`` seeded synthetic batches of ``b`` images on ``dev``: weather
+    ids ``(i + j) % 5``, random labels, the first rows ignored."""
+    import torch
+    loader = []
+    for i in range(n):
+        labels = torch.randint(0, 19, (b, h, w), generator=g, device=dev,
+                               dtype=torch.int32)
+        labels[:, :h // 32] = 255
+        loader.append({
+            'image': torch.randint(0, 256, (b, h, w, 3), generator=g,
+                                   device=dev, dtype=torch.uint8),
+            'label': labels,
+            'weather_id': (torch.arange(b, device=dev) + i) % 5,
+            'sample_id': torch.arange(i * b, (i + 1) * b, device=dev)})
+    return loader
+
+
+def phase_evaluator(dev):
+    """The robustness sweep (``Evaluator``) on the main path's model at
+    512×1024, batch 8, bf16, over ``EVAL_SWEEP_BATCHES`` synthetic
+    batches: in ``histogram`` mode (counted: K1–K3 must launch; then timed
+    in a second sweep) and in ``exact`` mode, whose exact AUROC must agree
+    with its histogram estimate within 1e-3; the metrics alone timed per
+    batch, and one whole batch profiled. Then card against CPU: a small
+    f32 sweep, 2 batches of 5 at 128×256, with the same draws (made on the
+    CPU), held to the CPU's results within the tests' tolerances. Returns
+    the launches."""
+    import torch
+    from awsegbench_torch.eval.evaluator import (AUROC_BINS, AUROC_RANGE,
+                                                 Evaluator)
+    from awsegbench_torch.metrics.disagreement import (auroc_exact,
+                                                       auroc_histogram_update)
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.weather.corruption import draw_corruption
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    loader = sweep_loader(dev, g, EVAL_SWEEP_BATCHES, B, H, W)
+    config = {'model': MODEL_CFG, 'tpu': {'precision': 'bf16'}}
+    model = create_model(MODEL_CFG, device=dev, seed=0)
+    ev = Evaluator(model, config, auroc_mode='histogram', device=dev)
+    res, launches = run_counted(lambda: ev.run(loader, seed=1),
+                                EVAL_COUNTERS, 'evaluator')
+    n_valid = check_sweep('histogram sweep', ev, res, loader, False)
+    res = ev.run(loader, seed=1)                      # warm: timed
+    check_sweep('histogram sweep', ev, res, loader, False)
+    ex = Evaluator(model, config, auroc_mode='exact', device=dev)
+    res_exact = ex.run(loader, seed=1)
+    check_sweep('exact sweep', ex, res_exact, loader, True)
+    gap = abs(res_exact['ensemble_disagreement_auroc']
+              - res_exact['_auroc_histogram_estimate'])
+    if not gap <= 1e-3:
+        raise AssertionError(f'exact and histogram AUROC differ by {gap}')
+
+    # the metrics alone, on one batch's outputs; one whole batch profiled
+    b0 = loader[0]
+    out = ev.forward(b0['image'], b0['label'], b0['weather_id'], g)
+    acc = ev.init_acc()
+    metrics_ms = time_ms(lambda: ev.accumulate(acc, out, b0['label'],
+                                               b0['weather_id']), reps=10)
+    batch_profile = profile_step(lambda: ev.accumulate(
+        acc, ev.forward(b0['image'], b0['label'], b0['weather_id'], g),
+        b0['label'], b0['weather_id']))
+    with torch.inference_mode():
+        dis = torch.rand(B * H * W, generator=g, device=dev) * 0.7
+        err = dis > 0.35
+        valid = (b0['label'] != 255).reshape(-1)
+    hist_ms = time_ms(lambda: auroc_histogram_update(
+        dis, err, AUROC_BINS, *AUROC_RANGE, weights=valid, log_scale=True),
+        reps=10)
+    scores = torch.rand(EVAL_SWEEP_BATCHES * B * H * W, generator=g,
+                        device=dev)
+    sort_ms = time_ms(lambda: auroc_exact(scores, scores > 0.5), reps=3,
+                      warmup=1)
+    del ev, ex, model, out, acc, loader, scores
+    torch.cuda.empty_cache()
+
+    # card against CPU: f32, the same draws
+    cg = torch.Generator().manual_seed(8)
+    small = sweep_loader('cpu', cg, 2, 5, 128, 256)
+    draws = [draw_corruption(b['weather_id'], 128, 256, cg) for b in small]
+    f32 = {'model': MODEL_CFG, 'tpu': {'precision': 'fp32'}}
+    both = {}
+    for where in (dev, 'cpu'):
+        e = Evaluator(create_model(MODEL_CFG, device=where, seed=0), f32,
+                      auroc_mode='exact', device=where)
+        both[str(where)] = (e.run(small, seed=0, draws=draws), e.last_acc)
+    (rg, ag), (rc, ac) = both[str(dev)], both['cpu']
+    moved = ((ag['cm'] - ac['cm']).abs().sum(dim=(1, 2)) / 2).tolist()
+    per_weather = ac['cm'].sum(dim=(1, 2)).tolist()
+    gaps = {k: abs(rg[k] - rc[k]) for k in rc if not k.startswith('_')
+            or k == '_auroc_histogram_estimate'}
+    if rg.keys() != rc.keys() or max(gaps.values()) > 2e-3 or any(
+            m > 1e-3 * n for m, n in zip(moved, per_weather)):
+        raise AssertionError(f'evaluator card vs CPU: moved {moved} of '
+                             f'{per_weather}, gaps {gaps}')
+    emit({'phase': 'evaluator', 'batch': B, 'hw': [H, W], 'dtype': 'bfloat16',
+          'batches': EVAL_SWEEP_BATCHES, 'valid_pixels': n_valid,
+          'images_per_s': res['_throughput_images_per_sec'],
+          'batch_ms': 1e3 * B / res['_throughput_images_per_sec'],
+          'exact_images_per_s': res_exact['_throughput_images_per_sec'],
+          'metrics_ms_per_batch': metrics_ms, 'batch_profile': batch_profile,
+          'auroc_histogram_update_ms': hist_ms,
+          'auroc_exact_ms': sort_ms,
+          'exact_pixels': EVAL_SWEEP_BATCHES * B * H * W,
+          'results': res, 'results_exact': res_exact, 'launches': launches,
+          'card_vs_cpu': {'cm_moved': moved, 'cm_pixels': per_weather,
+                          'max_gap': max(gaps.values()),
+                          'cpu_results': rc}})
+    return launches
 
 
 def main() -> int:
@@ -1465,6 +1645,7 @@ def main() -> int:
     train_launches = phase_train_path(dev)
     phase_train_parity(dev)
     single_recs, single_launches = phase_single_image(dev)
+    evaluator_launches = phase_evaluator(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -1472,9 +1653,11 @@ def main() -> int:
     # K7–K10: device time and the kron design's bound, K7–K10 the hash
     # floor, K8 and K10 their device time without dropout
     extra = ('design', 'device_ms', 'device_ms_rate0', 'library_device_ms',
-             'exp_bound_ms', 'kron_bound_ms', 'hash_bound_ms', 'hash_ops')
+             'exp_bound_ms', 'kron_bound_ms', 'hash_bound_ms', 'hash_ops',
+             'by_hw')
     paths = {'eval': eval_launches, 'train': train_launches,
-             'single_image': single_launches}
+             'single_image': single_launches,
+             'evaluator': evaluator_launches}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):

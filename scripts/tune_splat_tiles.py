@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Time the port's splat kernels (K3, K4, K5) on one GPU at the paths'
 shapes, for the checkout at ROOT and, where its ``csrc/splat.cu`` takes
-them, over K3/K4's tile shapes.
+them, over the kernel's tile shapes.
 
 Run on a machine with an NVIDIA H100 and the CUDA toolkit:
-``python3 scripts/tune_splat_tiles.py ROOT [RxC/RxC ...]``. ROOT holds a
-checkout of the repository (its ``awsegbench_torch/``); to compare two
-commits, unpack the parent with ``git archive`` into a directory that
+``python3 scripts/tune_splat_tiles.py ROOT [RxC/RxC[/RxC] ...]``. ROOT
+holds a checkout of the repository (its ``awsegbench_torch/``); to compare
+two commits, unpack the parent with ``git archive`` into a directory that
 ``.gitignore`` lists and run parent, change, change, parent in one call.
-Each RxC/RxC (default: the source's own tiles) rebuilds ``splat.cu`` with
-the batch's tile (K3) before the slash and one image's (K4) after it
-(``-DSPLAT_BATCH_ROWS``, ``-DSPLAT_BATCH_COLS``, ``-DSPLAT_IMAGE_ROWS``,
-``-DSPLAT_IMAGE_COLS``); C is a multiple of 16.
+Each RxC/RxC/RxC (default: the source's own tiles) rebuilds ``splat.cu``
+with the batch's tile (K3), one image's up to 1 Mpx (K4) and one image's
+above it (K5), in that order (``-DSPLAT_BATCH_ROWS``,
+``-DSPLAT_BATCH_COLS``, ``-DSPLAT_IMAGE_*``, ``-DSPLAT_LARGE_*``; a source
+that has no such tile ignores its flags); C is a multiple of 16 and R·C at
+most 16384.
 
 It prints the card's ``nvidia-smi`` name and power limit, then one JSON
 line per tile shape: for each case, the median of single calls between
@@ -28,8 +30,11 @@ card:
 * ``k3_no_valid``: the rain/snow batch with every slot invalid (the cull's
   reads, no hit test);
 * ``k3_no_slots``: 8 images with no slot (the mask write alone);
-* ``k4``: one 512×1024 rain image (K4); ``k5``: one 2048×1024 rain image
-  (K5, not retiled).
+* ``k4``: one 512×1024 rain image (K4);
+* ``k5_1024x2048``: one rain image at Cityscapes' size, 1024 high and 2048
+  wide (K5); ``k5_2048x1024``: the same pixel count upright;
+* ``k5_no_valid``, ``k5_no_slots``: the 1024×2048 image with every slot
+  invalid, and with no slot (K5's cull, and its mask write alone).
 
 Every mask is checked bit-equal to the plain version first.
 """
@@ -74,20 +79,25 @@ def _cases(cs, dev):
     no_valid = mixed.clone()
     no_valid[..., 5] = 0.0
     single = {}
-    for hw in ((h, w), (2048, 1024)):
+    for hw in ((h, w), (1024, 2048), (2048, 1024)):
         d = draw_corruption(torch.tensor([2], device=dev), *hw, g)
         single[hw] = splat.pack_params(
             d['rain_ax'], d['rain_ay'], d['rain_bx'], d['rain_by'],
             d['rain_radius'], d['rain_valid'])[0]
-    k3 = splat.splat_coverage_batched
+    k5_no_valid = single[(1024, 2048)].clone()
+    k5_no_valid[:, 5] = 0.0
+    k3, k5 = splat.splat_coverage_batched, splat.splat_coverage_tiled
     return {
         'k3_rain_snow': (k3, mixed, (h, w)),
         'k3_eval_mix': (k3, eval_mix, (h, w)),
         'k3_no_valid': (k3, no_valid, (h, w)),
         'k3_no_slots': (k3, mixed[:, :0].contiguous(), (h, w)),
         'k4': (splat.splat_coverage_windowed, single[(h, w)], (h, w)),
-        'k5': (splat.splat_coverage_tiled, single[(2048, 1024)],
-               (2048, 1024)),
+        'k5_1024x2048': (k5, single[(1024, 2048)], (1024, 2048)),
+        'k5_2048x1024': (k5, single[(2048, 1024)], (2048, 1024)),
+        'k5_no_valid': (k5, k5_no_valid, (1024, 2048)),
+        'k5_no_slots': (k5, single[(1024, 2048)][:0].contiguous(),
+                        (1024, 2048)),
     }
 
 
@@ -134,7 +144,8 @@ def main(argv) -> int:
     for tiles in argv[1:] or [None]:
         flags = []
         if tiles:
-            for kind, tile in zip(('BATCH', 'IMAGE'), tiles.split('/')):
+            for kind, tile in zip(('BATCH', 'IMAGE', 'LARGE'),
+                                  tiles.split('/')):
                 rows, cols = tile.split('x')
                 flags += [f'-DSPLAT_{kind}_ROWS={rows}',
                           f'-DSPLAT_{kind}_COLS={cols}']

@@ -1,8 +1,9 @@
-"""K3/K4's tile walk against the plain splat mask and JAX's batched kernel,
-on the CPU.
+"""The splat kernel's tile walk against the plain splat mask and JAX's
+batched and tiled kernels, on the CPU.
 
-The CUDA kernel behind ``splat_coverage_batched`` (K3) and
-``splat_coverage_windowed`` (K4), ``splat_tiles_kernel`` in
+The CUDA kernel behind ``splat_coverage_batched`` (K3),
+``splat_coverage_windowed`` (K4) and ``splat_coverage_tiled`` (K5),
+``splat_tiles_kernel`` in
 ``csrc/splat.cu``, keeps for each tile the valid drops whose box, inflated
 by r plus one pixel, meets the tile, and tests the tile's pixels against
 those only. ``ops/splat.py::splat_coverage_tiles_plain`` is that walk in
@@ -11,9 +12,9 @@ holds when the cull never drops a drop that covers a pixel of the tile:
 both are tested here, over random capsules, over drawn edge cases (ragged
 images, 1×W and H×1, no slots or no valid slot, boxes across tile and
 image borders, zero-length segments, the four production radii) and
-against JAX's ``splat_coverage_batched`` (interpret mode) on production
-rain and snow draws. The kernel itself is held bit-equal to the plain
-version on the card by ``chip_smoke.py``.
+against JAX's ``splat_coverage_batched`` and its tiled single-image kernel
+(interpret mode) on production rain and snow draws. The kernel itself is
+held bit-equal to the plain version on the card by ``chip_smoke.py``.
 """
 
 import jax
@@ -34,7 +35,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 RADII = (0.5, 1.5, 1.0, 4.0)        # rain streaks' and snow flakes' radii
-TILES = (splat.BATCH_TILE, splat.IMAGE_TILE, (8, 16), (4, 4), (3, 5))
+TILES = (splat.BATCH_TILE, splat.IMAGE_TILE, splat.LARGE_IMAGE_TILE,
+         (8, 16), (4, 4), (3, 5))
 
 
 def _params(caps) -> torch.Tensor:
@@ -53,10 +55,13 @@ def _batch(b, n, h, w, n_valid, seed=0) -> torch.Tensor:
 @pytest.mark.parametrize('b,h,w,n,n_valid,tile', [
     (2, 64, 256, 64, 50, splat.BATCH_TILE),   # several of the batch's tiles
     (1, 64, 256, 64, 50, splat.IMAGE_TILE),   # one image's tiles
+    (1, 64, 256, 64, 50, splat.LARGE_IMAGE_TILE),  # a large image's
     (3, 37, 101, 40, 30, splat.BATCH_TILE),   # ragged: partial tiles, W % 4
     (1, 37, 101, 40, 30, splat.IMAGE_TILE),   # != 0
+    (1, 37, 101, 40, 30, splat.LARGE_IMAGE_TILE),
     (3, 37, 101, 40, 30, (8, 16)),            # many small tiles
     (1, 1, 300, 20, 20, splat.IMAGE_TILE),    # 1×W
+    (1, 300, 1, 20, 20, splat.LARGE_IMAGE_TILE),  # H×1
     (3, 300, 1, 20, 20, splat.BATCH_TILE),    # H×1
     (2, 40, 130, 0, 0, splat.BATCH_TILE),     # no drop slots
     (2, 40, 130, 16, 0, splat.BATCH_TILE),    # no valid slot
@@ -150,7 +155,8 @@ def test_cull_never_drops_a_covering_drop_random_capsules():
     h, w = 64, 256
     params = _batch(1, 120, h, w, 120, seed=5)[0]
     for d in range(params.shape[0]):
-        for tile in (splat.BATCH_TILE, splat.IMAGE_TILE):
+        for tile in (splat.BATCH_TILE, splat.IMAGE_TILE,
+                     splat.LARGE_IMAGE_TILE):
             _assert_cull_keeps_covering_drops(params[d], h, w, tile)
 
 
@@ -182,3 +188,26 @@ def test_tile_walk_equals_jax_batched_kernel(seed):
         np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, splat.splat_coverage_plain(params, h, w))
     assert want[[0, 1, 3]].any(axis=(1, 2)).all() and not want[2].any()
+
+
+@pytest.mark.parametrize('weather', ['rain', 'snow'])
+def test_large_tile_walk_equals_jax_tiled_kernel(weather):
+    """K5's side: at 8×26300 the TPU dispatch pads past 1 Mpx and takes its
+    tiled kernel (``_splat_kernel``, interpret mode), which the walk at
+    ``LARGE_IMAGE_TILE`` equals bit for bit on production draws."""
+    h, w = 8, 26300
+    assert not splat.uses_windowed(h, w)
+    key = jax.random.PRNGKey(3)
+    if weather == 'rain':
+        _, ax, ay, bx, by, r, valid = jcorr._rain_splat_params(key, h, w)
+    else:
+        _, ax, ay, r, valid, _ = jcorr._snow_splat_params(key, h, w)
+        bx, by = ax, ay
+    want = np.asarray(jsplat.splat_coverage_pallas(
+        jsplat.pack_params(ax, ay, bx, by, r, valid), h, w, interpret=True))
+    params = _params([np.array(c)[None] for c in (ax, ay, bx, by, r, valid)])
+    got = splat.splat_coverage_tiles_plain(params, h, w,
+                                           splat.LARGE_IMAGE_TILE)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, splat.splat_coverage_plain(params, h, w)[0])
+    assert want.any()
