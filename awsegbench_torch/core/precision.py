@@ -23,12 +23,17 @@ class Policy:
     param_dtype: torch.dtype
     compute_dtype: torch.dtype
 
-    def cast_to_compute(self, module: nn.Module) -> dict[str, torch.Tensor]:
+    def cast_to_compute(self, module: nn.Module, buffers: bool = False
+                        ) -> dict[str, torch.Tensor]:
         """The module's floating parameters, by name, cast to the compute
         dtype (a differentiable cast; the masters themselves when the
-        dtypes agree)."""
-        return {name: p.to(self.compute_dtype) if p.is_floating_point() else p
-                for name, p in module.named_parameters()}
+        dtypes agree); with ``buffers``, its BN running statistics too (the
+        eval forward's, as JAX casts ``batch_stats``)."""
+        tensors = dict(module.named_parameters())
+        if buffers:
+            tensors.update(module.named_buffers())
+        return {name: t.to(self.compute_dtype) if t.is_floating_point() else t
+                for name, t in tensors.items()}
 
 
 def get_policy(name: str = 'bf16') -> Policy:

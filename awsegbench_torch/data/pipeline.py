@@ -1,15 +1,25 @@
-"""Device-side batch preparation (counterpart of ``prepare_batch``,
-``_train_augment`` and ``normalize_imagenet`` in
-``awsegbench/data/pipeline.py``).
+"""The host-side loader and the device-side batch preparation
+(counterpart of ``awsegbench/data/pipeline.py``).
 
-As the corruption, the train-time augmentation is split into its draws
-(:func:`draw_augment`, from an explicit ``torch.Generator``) and a
-deterministic apply (:func:`apply_augment`), so tests can hand the JAX
+Host side: :class:`BatchIterator` stacks a map-style dataset's items into
+numpy batches on a producer thread (decode on a thread pool, the RNG tail
+in index order, so the batches equal the JAX package's bit for bit), and
+:func:`prefetch_to_device` copies each batch to the card from pinned
+memory one batch ahead. ``drop_last`` defaults to ``shuffle``.
+
+Device side: as the corruption, the train-time augmentation is split into
+its draws (:func:`draw_augment`, from an explicit ``torch.Generator``) and
+a deterministic apply (:func:`apply_augment`), so tests can hand the JAX
 path's draws to the port.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Any, Dict, Iterable, Iterator, Optional
+
+import numpy as np
 import torch
 
 from .._device import const
@@ -18,6 +28,179 @@ from ..weather.depth import estimate_depth_batch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _stack(items, num_threads: int) -> np.ndarray:
+    """Batch-stack with the native threaded packer when it is available
+    (its memcpy releases the interpreter lock), else ``np.stack``."""
+    if num_threads > 1 and len(items) > 1:
+        from .. import native as _native
+        if _native.available():
+            return _native.pack_batch(items, n_threads=min(num_threads,
+                                                           len(items)))
+    return np.stack(items)
+
+
+class BatchIterator:
+    """Shuffled batch iterator over a map-style dataset, with a producer
+    thread that keeps ``prefetch`` batches ready.
+
+    Yields dicts of stacked numpy arrays: ``{image: uint8 [B, H, W, 3],
+    label: int32 [B, H, W], weather_id: int32 [B], sample_id: int32 [B]}``
+    plus the per-sample weather names. The shuffle of epoch ``e`` is seeded
+    with ``seed + e``. ``process_index``/``process_count`` slice each global
+    batch for one of several loading processes, as the JAX package does;
+    nothing in the port runs more than one yet (ROADMAP.md §1 item 7).
+    """
+
+    def __init__(self, dataset, batch_size: int = 8, shuffle: bool = True,
+                 seed: int = 0, drop_last: Optional[bool] = None,
+                 prefetch: int = 2, num_threads: int = 4,
+                 process_index: int = 0, process_count: int = 1) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.prefetch = prefetch
+        self.num_threads = max(1, num_threads)
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
+        if self.process_count > 1:
+            if batch_size % self.process_count:
+                raise ValueError(
+                    f'global batch_size {batch_size} must divide over '
+                    f'{self.process_count} processes')
+            if not self.drop_last and len(dataset) % batch_size:
+                raise ValueError(
+                    'process-sharded loading requires drop_last=True or a '
+                    'dataset length divisible by the global batch size '
+                    '(uneven final batches cannot shard across hosts)')
+        self._epoch = 0
+        self._pool = None  # lazy decode ThreadPoolExecutor
+
+    def _decode_pool(self):
+        if self._pool is None and self.num_threads > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.num_threads,
+                thread_name_prefix='awseg-decode')
+        return self._pool
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_indices(self) -> list[np.ndarray]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        batches = []
+        for start in range(0, n, self.batch_size):
+            idx = order[start:start + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                continue
+            if self.process_count > 1:
+                local = len(idx) // self.process_count
+                idx = idx[self.process_index * local:
+                          (self.process_index + 1) * local]
+            batches.append(idx)
+        return batches
+
+    def _collate(self, idx: np.ndarray) -> Dict[str, Any]:
+        ds = self.dataset
+        pool = self._decode_pool()
+        if (pool is not None and hasattr(ds, 'load_arrays')
+                and hasattr(ds, 'finish_item')):
+            # Decode in parallel (RNG-free; cv2 and the native decoder
+            # release the interpreter lock), then the RNG tail in index
+            # order on this thread: the same stream as one thread.
+            decoded = list(pool.map(ds.load_arrays, (int(i) for i in idx)))
+            items = [ds.finish_item(int(i), im, lb)
+                     for i, (im, lb) in zip(idx, decoded)]
+        else:
+            items = [ds[int(i)] for i in idx]
+        return {
+            'image': _stack([it['image'] for it in items], self.num_threads),
+            'label': _stack([np.asarray(it['label'], np.int32)
+                             for it in items], self.num_threads),
+            'weather_id': np.asarray([it['weather_id'] for it in items],
+                                     np.int32),
+            'weather_condition': [it['weather_condition'] for it in items],
+            'sample_id': idx.astype(np.int32),
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        batches = self._batch_indices()
+        self._epoch += 1
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+
+        def producer():
+            try:
+                for idx in batches:
+                    q.put(self._collate(idx))
+                q.put(stop)
+            except BaseException as e:  # handed to the consumer, re-raised
+                q.put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+
+def _to_device(batch: Dict[str, Any], device: str | torch.device
+               ) -> Dict[str, Any]:
+    """A host batch's arrays as tensors on ``device``: on a card, copied
+    from pinned host memory without waiting for the copy; on the CPU, the
+    arrays themselves. Entries that are not arrays pass through."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(v)
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            v = t
+        out[k] = v
+    return out
+
+
+def prefetch_to_device(batch_iter: Iterable[Dict[str, Any]],
+                       device: str | torch.device, lookahead: int = 1
+                       ) -> Iterator[Dict[str, Any]]:
+    """Yield each batch on ``device`` while the copies of the next
+    ``lookahead`` batches are already queued (:func:`_to_device`); the uint8
+    images go to the card as uint8."""
+    pending = []
+    for batch in batch_iter:
+        pending.append(_to_device(batch, device))
+        if len(pending) > lookahead:
+            yield pending.pop(0)
+    yield from pending
+
+
+def create_dataloader(dataset, batch_size: int = 8, shuffle: bool = True,
+                      num_workers: int = 4, pin_memory: bool = True,
+                      **kwargs) -> BatchIterator:
+    """Loader factory of the reference's signature: ``num_workers`` decode
+    threads, ``drop_last`` defaulting to ``shuffle``. ``pin_memory`` is
+    accepted and has no effect here: :func:`prefetch_to_device` pins what
+    goes to a card."""
+    return BatchIterator(dataset, batch_size=batch_size, shuffle=shuffle,
+                         num_threads=num_workers,
+                         drop_last=kwargs.pop('drop_last', None),
+                         **kwargs)
 
 
 def normalize_imagenet(images_u8: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,7 @@ from ..metrics.disagreement import (auroc_exact, auroc_from_histogram,
 from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
                            iou_from_confusion)
 from ..metrics.robustness import ADVERSE_WEATHERS, RobustnessMetrics
+from ..utils.config import check_tpu_section
 from ..weather.corruption import WEATHER_CONDITIONS
 
 logger = logging.getLogger(__name__)
@@ -61,7 +62,9 @@ AUROC_MODES = ('histogram', 'exact', 'exact_host')
 class Evaluator:
     """The sweep on one device: ``Evaluator(model, config).run(loader)``.
 
-    ``config`` is the repository's config (a mapping): ``model.num_classes``,
+    ``config`` is the repository's config (a mapping or a
+    ``utils.config.Config``; its ``tpu`` section is checked by
+    ``check_tpu_section``): ``model.num_classes``,
     ``evaluation.auroc_mode`` (``'histogram'``, ``'exact'``,
     ``'exact_host'``; ``collect_exact_auroc`` asks for ``'exact_host'``),
     ``evaluation.exact_auroc_max_bytes`` (above it ``'exact'`` falls back to
@@ -75,7 +78,9 @@ class Evaluator:
                  num_bins: int = 15, collect_exact_auroc: bool = False,
                  auroc_mode: str | None = None,
                  device: str | torch.device = 'cuda') -> None:
-        cfg = dict(config or {})
+        cfg = (config.to_dict() if hasattr(config, 'to_dict')
+               else dict(config or {}))
+        check_tpu_section(cfg)
         self.config = cfg
         self.num_classes = (cfg.get('model') or {}).get('num_classes', 19)
         self.num_bins = num_bins

@@ -16,16 +16,20 @@ for parity with the JAX package come from ``convert.flax_to_torch``.
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Mapping
 
 import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..utils.config import check_tpu_section
 from .deeplab import Bottleneck, DeepLabV3PlusModel
 from .ensemble import EnsembleModel
 from .heads import BatchNorm
 from .segformer import SegFormerModel, mit_variant_config, mit_variant_name
+
+logger = logging.getLogger(__name__)
 
 
 def _init_(model: nn.Module, seed: int) -> None:
@@ -50,13 +54,27 @@ def _init_(model: nn.Module, seed: int) -> None:
 
 
 def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
-                 seed: int = 0, dtype: torch.dtype = torch.float32) -> nn.Module:
+                 seed: int | None = None,
+                 dtype: torch.dtype = torch.float32) -> nn.Module:
     """Build, seed-initialise and place a model in eval mode.
 
     ``config`` is the model section (``{'type': 'ensemble', 'num_classes':
-    19, ...}``) or a whole config holding it under ``'model'``."""
+    19, ...}``) or a whole config holding it under ``'model'`` (a dict or a
+    ``utils.config.Config``); then its ``tpu`` section is checked
+    (``check_tpu_section``). ``seed`` defaults to the config's ``seed``
+    (0 when it has none). ``pretrained: true`` logs a warning: pretrained
+    encoders are not loaded yet (ROADMAP.md §1 item 5), so the init is
+    random, as JAX's when no weights are cached. ``remat: true`` raises."""
     dev = resolve_device(device)
+    whole = config.get('model') is not None
+    check_tpu_section(config if whole else {'model': config})
+    if seed is None:
+        seed = config.get('seed', 0)
     cfg = dict(config.get('model', config))
+    if cfg.get('pretrained', False):
+        logger.warning('model.pretrained: pretrained encoders are not '
+                       'loaded yet (ROADMAP.md §1 item 5); the weights are '
+                       'a random init from seed %d', seed)
     kind = cfg.get('type', 'ensemble')
     num_classes = cfg.get('num_classes', 19)
     include_depth = cfg.get('include_depth', True)

@@ -64,6 +64,12 @@ class Optimizer:
                                  self.grad_clip)
         self.inner.step()
 
+    def state_dict(self) -> dict[str, Any]:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        self.inner.load_state_dict(state)
+
     @property
     def learning_rate(self) -> float:
         return self.inner.param_groups[0]['lr']

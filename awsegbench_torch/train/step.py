@@ -12,6 +12,9 @@ with the host.
 
 from __future__ import annotations
 
+import functools
+from typing import Callable
+
 import torch
 from torch import nn
 
@@ -20,7 +23,8 @@ from ..core.precision import get_policy
 from ..data.pipeline import prepare_batch
 from ..losses.fog_density import FogDensityAwareLoss
 from .optim import Optimizer, create_optimizer
-from .trainer import draw_dropout_seed, fog_density_from_weather, train_step
+from .trainer import (draw_dropout_seed, fog_density_from_weather,
+                      forward_params, train_step)
 
 # bench.py's optimiser: optax.chain(clip_by_global_norm(1.0), adamw(1e-3)),
 # whose default weight decay is 1e-4
@@ -28,41 +32,57 @@ BENCH_OPTIMIZER = {'type': 'adamw', 'learning_rate': 1e-3,
                    'weight_decay': 1e-4}
 
 
-DEPTH_SEEDS = ('segformer_depth_seed', 'deeplab_depth_seed')
+DEPTH_SEEDS = ('segformer_depth_seed', 'deeplab_depth_seed', 'depth_seed')
 
 
 class TrainStep:
     """Puts ``model`` on ``device`` with f32 parameters in train mode and
-    steps it with ``FogDensityAwareLoss()``. ``optimizer`` defaults to
-    bench.py's (clip 1.0, AdamW lr 1e-3, decay 1e-4), ``precision`` to bf16
-    compute. A model with depth heads (``include_depth=True``, bench.py's
-    configuration) also learns from the estimated depth of the corrupted
-    images through the loss's depth term."""
+    steps it with ``loss_fn`` (default ``FogDensityAwareLoss()``).
+    ``optimizer`` defaults to bench.py's (clip 1.0, AdamW lr 1e-3, decay
+    1e-4), ``precision`` to bf16 compute. A model with depth heads
+    (``include_depth=True``, bench.py's configuration) also learns from the
+    estimated depth of the corrupted images through the loss's depth term.
+    ``apply_augmentation=False`` leaves out the flip and
+    brightness/contrast. With any loss but ``FogDensityAwareLoss`` no fog
+    density is drawn, as the JAX trainer's plain cross-entropy takes
+    none."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer | None = None,
                  precision: str = 'bf16',
-                 device: str | torch.device = 'cuda') -> None:
+                 device: str | torch.device = 'cuda',
+                 loss_fn: Callable | None = None,
+                 apply_augmentation: bool = True) -> None:
         self.device = resolve_device(device)
         self.policy = get_policy(precision)
         self.model = model.to(device=self.device,
                               dtype=self.policy.param_dtype).train()
         self.include_depth = getattr(model, 'include_depth', False)
+        self.apply_augmentation = apply_augmentation
         self.optimizer = optimizer or create_optimizer(
             self.model.parameters(), BENCH_OPTIMIZER, grad_clip=1.0)
-        self.loss_fn = FogDensityAwareLoss()
+        self.loss_fn = loss_fn or FogDensityAwareLoss()
+        self.use_fog = isinstance(self.loss_fn, FogDensityAwareLoss)
+        takes = forward_params(self.model)
+        self.seed_names = tuple(
+            k for k in ('seed',) + (DEPTH_SEEDS if self.include_depth else ())
+            if k in takes)
 
     def __call__(self, images_u8: torch.Tensor, labels: torch.Tensor,
                  weather_ids: torch.Tensor,
                  generator: torch.Generator | None = None,
-                 draws: dict | None = None) -> dict[str, torch.Tensor]:
+                 draws: dict | None = None,
+                 sample_mask: torch.Tensor | None = None
+                 ) -> dict[str, torch.Tensor]:
         """One step on images [B, H, W, 3] uint8, labels [B, H, W] and
         weather ids [B]. Every random draw comes from ``generator`` (on the
         device) unless given in ``draws``: 'corruption' (as
         ``draw_corruption``), 'augment' (as ``draw_augment``), 'fog_u'
         [B, H, W], 'seed' (int32, the seg head's dropout), 'aspp_mask'
-        [B, h/16, w/16, 256] bool and, with depth heads,
-        'segformer_depth_seed' and 'deeplab_depth_seed' (int32 each).
-        Returns the loss dict."""
+        [B, h/16, w/16, 256] bool and, with depth heads, one int32 seed
+        per depth head under the model's keyword ('segformer_depth_seed'
+        and 'deeplab_depth_seed' for the ensemble, 'depth_seed' for one
+        member). ``sample_mask`` ([B] 0/1) drops rows from the
+        fog-density-aware loss's means. Returns the loss dict."""
         dev = self.device
         draws = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                      if isinstance(v, dict) else v.to(dev))
@@ -74,17 +94,20 @@ class TrainStep:
                              generator=generator,
                              draws=draws.get('corruption'),
                              include_depth=self.include_depth, train=True,
+                             apply_augmentation=self.apply_augmentation,
                              aug_draws=draws.get('augment'))
-        fog = fog_density_from_weather(weather_ids, h, w, generator,
-                                       draws.get('fog_u'))
-        names = ('seed',) + (DEPTH_SEEDS if self.include_depth else ())
+        loss_fn, fog = self.loss_fn, None
+        if self.use_fog:
+            fog = fog_density_from_weather(weather_ids, h, w, generator,
+                                           draws.get('fog_u'))
+            loss_fn = functools.partial(loss_fn, sample_mask=sample_mask)
         seeds = {k: draws[k] if k in draws else draw_dropout_seed(generator,
                                                                   dev)
-                 for k in names}
+                 for k in self.seed_names}
         targets = {'label': prep['label']}
         if self.include_depth:
             targets['depth'] = prep['depth']
-        return train_step(self.model, self.optimizer, self.loss_fn,
+        return train_step(self.model, self.optimizer, loss_fn,
                           self.policy, prep['image'], targets, fog,
-                          seeds.pop('seed'), draws.get('aspp_mask'),
+                          seeds.pop('seed', None), draws.get('aspp_mask'),
                           generator, seeds)

@@ -86,6 +86,24 @@ Phases, each printing one JSON line:
    Then card against CPU: an f32 sweep of 2 batches of 5 at 128×256 with
    the same draws, confusion matrices within 0.1% of each weather's
    pixels and mIoU, ECE and AUROC within 2e-3 of the CPU's.
+10. cli: the train CLI (``awsegbench_torch.cli.train.main``) in this
+    process on ``configs/default.yaml`` with an empty data root (the
+    synthetic 100 train and 20 val/test images), 512×1024, batch 8, one
+    epoch, bf16: the default config's full-width ensemble with depth heads
+    and faithful heads. Counted: K1, K3, K6–K10 and the scatter must
+    launch (K1 and K6 through their tensor-core design);
+    ``training_results.json`` must hold one epoch of finite losses over 96
+    train samples (12 steps, ``drop_last``) and 20 val samples, and
+    ``checkpoints/latest`` and ``best`` must exist. The latest checkpoint,
+    loaded into a fresh model on the card, must equal the trainer's final
+    state dict bit for bit, BN buffers included. Then the evaluate CLI on
+    it (counted: K1–K3 must launch): ``evaluation_results.json`` with the
+    overall and per-weather mIoU and ECE and the disagreement AUROC, all
+    finite, and ``evaluation_report.md``. Times: the train epoch, its
+    images/s, validation, the checkpoint saves and bytes, each CLI's
+    wall time and the sweep's images/s, and the loader alone (one epoch
+    of the train split onto the card), beside the card's name and power
+    limit.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -93,9 +111,10 @@ comparisons compare f32 arithmetic. Before the last line it prints the
 kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
-(the evaluator's too) under ``launches_by_path``; the kernels with two
-designs add their ``design`` per dtype and their per-design counts per
-path) and the card's ``nvidia-smi`` name and power limit; the last line
+(the evaluator's and the two CLIs' too) under ``launches_by_path``; the
+kernels with two designs add their ``design`` per dtype and their
+per-design counts per path) and the card's ``nvidia-smi`` name and power
+limit; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
 script exits non-zero.
 """
@@ -1605,6 +1624,157 @@ def phase_evaluator(dev):
     return launches
 
 
+CLI_WEATHERS = ('clean', 'fog', 'rain', 'snow', 'night')
+
+
+def cli_config(tmp: Path) -> Path:
+    """``configs/default.yaml`` with an empty data root (the synthetic
+    fallback: 100 train and 20 val/test images), 512×1024, batch 8, one
+    epoch, bf16, MLflow off and warnings only; written under ``tmp``."""
+    import yaml
+    cfg = yaml.safe_load((ROOT / 'configs' / 'default.yaml').read_text())
+    (tmp / 'no_data').mkdir()
+    cfg['data'].update(data_root=str(tmp / 'no_data'), image_size=[H, W])
+    cfg['training'].update(batch_size=B, epochs=1)
+    cfg['tpu']['precision'] = 'bf16'
+    cfg['mlflow']['enabled'] = False
+    cfg['logging']['level'] = 'WARNING'
+    path = tmp / 'config.yaml'
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def timed_methods(cls, names, seconds):
+    """Wrap ``cls``'s methods ``names`` so that each call's wall time is
+    added to ``seconds[name]`` (each method ends in a fetch from the card,
+    so its wall time covers its device work); returns the originals."""
+    originals = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + \
+                    time.perf_counter() - t0
+        return timed
+    for n, fn in originals.items():
+        setattr(cls, n, wrap(n, fn))
+    return originals
+
+
+def phase_cli(dev):
+    """The train CLI then the evaluate CLI, in this process, on the
+    default config's full-width ensemble with depth heads (faithful heads)
+    at 512×1024, batch 8, bf16, one epoch over the synthetic set: counted
+    (K1, K3, K6–K10 and the scatter in the train CLI, K1–K3 in the
+    evaluate CLI), the result files checked, the latest checkpoint
+    reloaded into a fresh model bit for bit. Returns the launches."""
+    import tempfile
+
+    import torch
+    from awsegbench_torch.cli import evaluate as eval_cli
+    from awsegbench_torch.cli import train as train_cli
+    from awsegbench_torch.data.pipeline import prefetch_to_device
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.checkpoints import load_checkpoint
+    from awsegbench_torch.train.trainer import AdverseWeatherTrainer
+    from awsegbench_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = cli_config(tmp)
+        run = tmp / 'run'
+        seconds = {}
+        originals = timed_methods(AdverseWeatherTrainer,
+                                  ('train_epoch', 'validate_epoch',
+                                   'save_checkpoint'), seconds)
+        try:
+            t0 = time.perf_counter()
+            trainer, train_launches = run_counted(
+                lambda: train_cli.main(['--config', str(cfg),
+                                        '--output-dir', str(run)]),
+                TRAIN_COUNTERS, 'cli train')
+            train_cli_s = time.perf_counter() - t0
+        finally:
+            for n, fn in originals.items():
+                setattr(AdverseWeatherTrainer, n, fn)
+        results = json.loads((run / 'results' / 'training_results.json')
+                             .read_text())
+        tr, va = results['history']['train'], results['history']['val']
+        losses = [tr[0][k] for k in ('train_loss', 'train_seg_loss',
+                                     'train_depth_loss')] + \
+            [va[0][k] for k in ('val_loss', 'val_seg_loss', 'val_depth_loss')]
+        ckpt = run / 'checkpoints'
+        if not (results['total_epochs'] == len(tr) == len(va) == 1
+                and all(map(math.isfinite, losses))
+                and tr[0]['train_samples'] == 96 and va[0]['val_samples'] == 20
+                and tr[0]['train_images_per_sec'] > 0
+                and (ckpt / 'latest' / 'model.pt').exists()
+                and (ckpt / 'best' / 'model.pt').exists()):
+            raise AssertionError(f'cli train: {results["history"]}, '
+                                 f'{sorted(p.name for p in ckpt.iterdir())}')
+        ckpt_bytes = sum(f.stat().st_size
+                         for f in (ckpt / 'latest').iterdir())
+
+        # the loader alone: one epoch of the train split onto the card
+        loader, _ = train_cli.create_datasets_and_loaders(load_config(cfg))
+        t0 = time.perf_counter()
+        n_loaded = sum(int(b['image'].shape[0])
+                       for b in prefetch_to_device(loader, dev))
+        torch.cuda.synchronize()
+        loader_images_per_sec = n_loaded / (time.perf_counter() - t0)
+
+        # the latest checkpoint in a fresh model on the card, bit for bit
+        model = create_model(load_config(cfg), device=dev)
+        tree, _ = load_checkpoint(str(ckpt / 'latest'), map_location=dev)
+        model.load_state_dict(tree['state_dict'])
+        final = trainer.model.state_dict()
+        reloaded = model.state_dict()
+        if reloaded.keys() != final.keys() or not all(
+                torch.equal(reloaded[k], v) for k, v in final.items()):
+            raise AssertionError('cli: the latest checkpoint does not '
+                                 'reload to the trained weights')
+        n_buffers = sum('running_' in k for k in final)
+        del trainer, model, tree, final, reloaded
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        res, eval_launches = run_counted(
+            lambda: eval_cli.main([str(ckpt / 'latest'), '--config',
+                                   str(cfg), '--output-dir',
+                                   str(tmp / 'eval')]),
+            EVAL_COUNTERS, 'cli evaluate')
+        eval_cli_s = time.perf_counter() - t0
+        written = json.loads((tmp / 'eval' / 'evaluation_results.json')
+                             .read_text())
+        needed = {'overall_miou', 'expected_calibration_error',
+                  'ensemble_disagreement_auroc'} | {
+            f'{k}_{w}' for k in ('miou', 'ece') for w in CLI_WEATHERS}
+        if not (needed <= set(written) and written['_num_images'] == 20
+                and all(math.isfinite(v) for v in written.values())
+                and (tmp / 'eval' / 'evaluation_report.md').exists()):
+            raise AssertionError(f'cli evaluate: {written}')
+    torch.cuda.empty_cache()
+    emit({'phase': 'cli', 'nvidia_smi': nvidia_smi(), 'batch': B,
+          'hw': [H, W], 'dtype': 'bfloat16',
+          'train_epoch_s': seconds['train_epoch'],
+          'train_images_per_sec': tr[0]['train_images_per_sec'],
+          'loader_images_per_sec': loader_images_per_sec,
+          'validate_s': seconds['validate_epoch'],
+          'checkpoint_bytes': ckpt_bytes,
+          'checkpoint_save_s': seconds['save_checkpoint'],
+          'train_cli_s': train_cli_s, 'bn_buffers_reloaded': n_buffers,
+          'evaluate_cli_s': eval_cli_s,
+          'evaluate_images_per_sec': written['_throughput_images_per_sec'],
+          'evaluate_sweep_s': written['_eval_seconds'],
+          'history': results['history'], 'evaluation': written,
+          'launches': {'cli_train': train_launches,
+                       'cli_evaluate': eval_launches}})
+    return train_launches, eval_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1627,11 +1797,18 @@ def main() -> int:
     smi = nvidia_smi()
     t0 = time.perf_counter()
     build_s = _build.build_all()
+    build_wall_s = time.perf_counter() - t0
+    # the loader's native host library (g++, before the CLIs time it)
+    from awsegbench_torch import native
+    t0 = time.perf_counter()
+    native_ok = native.available()
     emit({'phase': 'device', 'nvidia_smi': smi,
           'name': torch.cuda.get_device_name(0),
           'count': torch.cuda.device_count(), 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'build_seconds': build_s,
-          'build_wall_seconds': time.perf_counter() - t0,
+          'build_wall_seconds': build_wall_s,
+          'native_host_library': native_ok,
+          'native_build_seconds': time.perf_counter() - t0,
           'tf32': 'off for matmuls and cuDNN convs'})
     for name, (_, log) in _build.build_log.items():
         print(f'--- nvcc {name} ---\n{log}', file=sys.stderr)
@@ -1646,6 +1823,7 @@ def main() -> int:
     phase_train_parity(dev)
     single_recs, single_launches = phase_single_image(dev)
     evaluator_launches = phase_evaluator(dev)
+    cli_train_launches, cli_evaluate_launches = phase_cli(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -1657,7 +1835,9 @@ def main() -> int:
              'by_hw')
     paths = {'eval': eval_launches, 'train': train_launches,
              'single_image': single_launches,
-             'evaluator': evaluator_launches}
+             'evaluator': evaluator_launches,
+             'cli_train': cli_train_launches,
+             'cli_evaluate': cli_evaluate_launches}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):
