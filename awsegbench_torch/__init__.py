@@ -14,9 +14,30 @@ kernel (or raises).
 Entry points (``models.factory.create_model``, ``eval.step.EvalStep``,
 ``eval.evaluator.Evaluator``, ``train.step.TrainStep``,
 ``weather.corruption.corrupt_batch``) run on ``device='cuda'`` unless the
-caller asks for ``device='cpu'``.
+caller asks for ``device='cpu'``. Importing the package or any of its
+subpackages builds no kernel.
+
+The package exports the JAX package's top-level names; its
+``_JAX_AVAILABLE`` and ``_TORCH_AVAILABLE`` flags have no counterpart
+(the port needs torch and has no stand-in classes).
 """
 
 from ._device import resolve_device
+from .losses.fog_density import FogDensityAwareLoss
+from .metrics.robustness import RobustnessMetrics
+from .models.deeplab import DeepLabV3PlusModel
+from .models.ensemble import EnsembleModel
+from .models.segformer import SegFormerModel
+from .train.trainer import AdverseWeatherTrainer
+from .utils.config import Config
 
-__all__ = ['resolve_device']
+__all__ = [
+    "SegFormerModel",
+    "DeepLabV3PlusModel",
+    "EnsembleModel",
+    "FogDensityAwareLoss",
+    "AdverseWeatherTrainer",
+    "RobustnessMetrics",
+    "Config",
+    "resolve_device",
+]

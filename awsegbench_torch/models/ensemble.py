@@ -26,7 +26,7 @@ class EnsembleModel(nn.Module):
                  ensemble_strategy: str = 'weighted_average',
                  temperature_scaling: bool = True,
                  head_mode: str = 'faithful',
-                 segformer_variant: str = 'b0') -> None:
+                 segformer_variant: str = 'b0', remat: bool = False) -> None:
         super().__init__()
         if ensemble_strategy not in ('weighted_average', 'max_confidence',
                                      'average'):
@@ -36,7 +36,7 @@ class EnsembleModel(nn.Module):
         self.ensemble_strategy = ensemble_strategy
         self.temperature_scaling = temperature_scaling
         self.segformer = SegFormerModel(num_classes, include_depth, head_mode,
-                                        hidden_sizes, depths)
+                                        hidden_sizes, depths, remat=remat)
         self.deeplabv3plus = DeepLabV3PlusModel(num_classes, include_depth)
         self.ensemble_weights = nn.Parameter(torch.full((2,), 0.5))
         if temperature_scaling:

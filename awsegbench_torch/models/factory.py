@@ -12,11 +12,14 @@ activations' scale through the 16 residual blocks and the logits O(10);
 the JAX package's fan-out init without it gives logits in the thousands,
 where an f32 comparison at an absolute tolerance means little. Weights
 for parity with the JAX package come from ``convert.flax_to_torch``.
+
+Pretrained encoders are grafted where the JAX package grafts them: in the
+trainer, through :func:`init_model_variables` (``models/pretrained.py``),
+not here, so a model built to load a checkpoint reads no weights file.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Any, Mapping
 
 import torch
@@ -27,12 +30,13 @@ from ..utils.config import check_tpu_section
 from .deeplab import Bottleneck, DeepLabV3PlusModel
 from .ensemble import EnsembleModel
 from .heads import BatchNorm
+from .pretrained import apply_pretrained
 from .segformer import SegFormerModel, mit_variant_config, mit_variant_name
 
-logger = logging.getLogger(__name__)
 
-
-def _init_(model: nn.Module, seed: int) -> None:
+def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialise ``model``'s weights in place from ``seed`` (the port's
+    init above); returns the model."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -51,6 +55,7 @@ def _init_(model: nn.Module, seed: int) -> None:
         for mod in model.modules():
             if isinstance(mod, Bottleneck):
                 mod.BatchNorm_0.weight.fill_(0.25)
+    return model
 
 
 def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
@@ -62,19 +67,20 @@ def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
     19, ...}``) or a whole config holding it under ``'model'`` (a dict or a
     ``utils.config.Config``); then its ``tpu`` section is checked
     (``check_tpu_section``). ``seed`` defaults to the config's ``seed``
-    (0 when it has none). ``pretrained: true`` logs a warning: pretrained
-    encoders are not loaded yet (ROADMAP.md §1 item 5), so the init is
-    random, as JAX's when no weights are cached. ``remat: true`` raises."""
+    (0 when it has none). ``remat`` (the model section's, else the
+    ``tpu`` section's, default false) checkpoints the MiT encoder's blocks
+    in training. ``pretrained`` is read by :func:`init_model_variables`,
+    not here."""
     dev = resolve_device(device)
     whole = config.get('model') is not None
     check_tpu_section(config if whole else {'model': config})
     if seed is None:
         seed = config.get('seed', 0)
     cfg = dict(config.get('model', config))
-    if cfg.get('pretrained', False):
-        logger.warning('model.pretrained: pretrained encoders are not '
-                       'loaded yet (ROADMAP.md §1 item 5); the weights are '
-                       'a random init from seed %d', seed)
+    # remat: recompute each encoder block in the backward (activation
+    # memory for one more encoder forward); the model section decides first
+    tpu = (config.get('tpu') or {}) if whole else {}
+    remat = bool(cfg.get('remat', tpu.get('remat', False)))
     kind = cfg.get('type', 'ensemble')
     num_classes = cfg.get('num_classes', 19)
     include_depth = cfg.get('include_depth', True)
@@ -92,18 +98,32 @@ def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
     if kind == 'segformer':
         hidden_sizes, depths = mit_variant_config(variant)
         model = SegFormerModel(num_classes, include_depth, head_mode,
-                               hidden_sizes, depths)
+                               hidden_sizes, depths, remat=remat)
     elif kind == 'deeplabv3plus':
         model = DeepLabV3PlusModel(num_classes, include_depth)
     elif kind == 'ensemble':
         model = EnsembleModel(
             num_classes, include_depth,
             cfg.get('ensemble_strategy', 'weighted_average'),
-            cfg.get('temperature_scaling', True), head_mode, variant)
+            cfg.get('temperature_scaling', True), head_mode, variant,
+            remat=remat)
     else:
         raise ValueError(f'Unknown model type: {kind}')
-    _init_(model, seed)
+    init_model(model, seed)
     return model.to(device=dev, dtype=dtype).eval()
+
+
+def init_model_variables(model: nn.Module, config: Mapping[str, Any],
+                         weights_dir: str | None = None) -> nn.Module:
+    """Graft the cached pretrained encoders into ``model`` in place when the
+    config's ``model.pretrained`` is true, as it is when the key is absent
+    (``apply_pretrained``; a missing cache leaves the random init with a
+    warning). ``config`` is a whole config (dict or ``Config``). Returns
+    the model."""
+    model_cfg = dict(config.get('model') or {})
+    if model_cfg.get('pretrained', True):
+        apply_pretrained(model, model_cfg, weights_dir)
+    return model
 
 
 def count_parameters(model: nn.Module) -> int:

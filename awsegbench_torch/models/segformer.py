@@ -15,6 +15,15 @@ Parity notes:
   default.
 * The spatial-reduction conv uses Flax ``'SAME'`` padding (none when the
   map divides by the ratio, as on the main path).
+
+Remat (``remat=True``) checkpoints each MiT block in training, as JAX's
+``nn.remat`` does: the block's activations are not kept but recomputed in
+the backward (``torch.utils.checkpoint``, non-reentrant), so the attention
+forward (K1 on the card) runs twice per block and step. The block's
+parameters, as the forward sees them (the precision policy's bf16 casts
+under ``functional_call``), are inputs of the checkpoint, so the
+recompute reads those same tensors rather than casting again. Module and
+state-dict names are the same with remat on or off.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import re
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sr_attention
 from ..ops.resize import upsample_like
@@ -171,15 +182,31 @@ class SegFormerBlock(nn.Module):
         return x + self.MixFFN_0(self.LayerNorm_1(x), hw)
 
 
+def _checkpointed_block(block: SegFormerBlock, tokens: torch.Tensor,
+                        hw: tuple[int, int]) -> torch.Tensor:
+    """``block(tokens, hw)`` under a non-reentrant checkpoint, with the
+    block's current parameters as the checkpoint's inputs. The block draws
+    no random numbers, so no RNG state is saved for the recompute."""
+    names, params = zip(*block.named_parameters())
+
+    def run(x, *ps):
+        return functional_call(block, dict(zip(names, ps)), (x, hw))
+    return checkpoint(run, tokens, *params, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class MiTEncoder(nn.Module):
-    """Mix Transformer encoder: [B, H, W, 3] → 4 NHWC stage features."""
+    """Mix Transformer encoder: [B, H, W, 3] → 4 NHWC stage features.
+    With ``remat``, each block is checkpointed in train mode under
+    autograd (never in eval or under ``no_grad``)."""
 
     def __init__(self, hidden_sizes=(32, 64, 160, 256), depths=(2, 2, 2, 2),
                  num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1),
                  patch_sizes=(7, 3, 3, 3), strides=(4, 2, 2, 2),
-                 mlp_ratios=(4, 4, 4, 4)) -> None:
+                 mlp_ratios=(4, 4, 4, 4), remat: bool = False) -> None:
         super().__init__()
         self.depths = tuple(depths)
+        self.remat = remat
         cin, blk = 3, 0
         for i, c in enumerate(hidden_sizes):
             self.add_module(f'OverlapPatchEmbed_{i}', OverlapPatchEmbed(
@@ -193,12 +220,15 @@ class MiTEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         features, blk = [], 0
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, depth in enumerate(self.depths):
             x = getattr(self, f'OverlapPatchEmbed_{i}')(x)
             b, h, w, c = x.shape
             tokens = x.reshape(b, h * w, c)
             for _ in range(depth):
-                tokens = getattr(self, f'SegFormerBlock_{blk}')(tokens, (h, w))
+                block = getattr(self, f'SegFormerBlock_{blk}')
+                tokens = (_checkpointed_block(block, tokens, (h, w)) if remat
+                          else block(tokens, (h, w)))
                 blk += 1
             x = getattr(self, f'LayerNorm_{i}')(tokens).reshape(b, h, w, c)
             features.append(x)
@@ -210,14 +240,15 @@ class SegFormerModel(nn.Module):
 
     def __init__(self, num_classes: int = 19, include_depth: bool = True,
                  head_mode: str = 'faithful',
-                 hidden_sizes=(32, 64, 160, 256), depths=(2, 2, 2, 2)) -> None:
+                 hidden_sizes=(32, 64, 160, 256), depths=(2, 2, 2, 2),
+                 remat: bool = False) -> None:
         super().__init__()
         if head_mode not in ('faithful', 'fused'):
             raise ValueError(f'unknown head_mode {head_mode!r}')
         self.include_depth = include_depth
         self.head_mode = head_mode
         self.MiTEncoder_0 = MiTEncoder(hidden_sizes=hidden_sizes,
-                                       depths=depths)
+                                       depths=depths, remat=remat)
         c = hidden_sizes[-1]
         self.SegmentationHead_0 = SegmentationHead(c, num_classes)
         if include_depth:

@@ -1,1 +1,36 @@
-"""Tensor ops and the three hand-written CUDA kernels of the eval path."""
+"""Tensor ops and the wrappers of the hand-written CUDA kernels.
+
+Importing these builds and loads no kernel: each wrapper builds its
+library with ``nvcc`` at its first launch on a CUDA tensor (``_build.py``).
+The JAX package's ``sr_attention_reference`` is ``sr_attention_plain``
+here.
+"""
+
+from .attention import sr_attention, sr_attention_plain
+from .depthkernels_train import depth_stage1_fused_train
+from .filters import (
+    box_filter,
+    depthwise_conv3x3,
+    gaussian_blur_cv,
+    gaussian_filter_scipy,
+    laplacian,
+    local_contrast,
+    percentile,
+    rgb_to_gray_cv,
+    rgb_to_gray_cv_u8,
+    separable_filter,
+)
+from .headkernels import seg_head_fused
+from .headkernels_train import seg_head_fused_train
+from .resize import resize_bilinear, resize_linear, resize_nearest, upsample_like
+from .upconv import upsample_conv3x3
+
+__all__ = [
+    "gaussian_blur_cv", "gaussian_filter_scipy", "box_filter", "laplacian",
+    "local_contrast", "rgb_to_gray_cv", "rgb_to_gray_cv_u8",
+    "separable_filter", "depthwise_conv3x3", "percentile",
+    "resize_bilinear", "resize_linear", "resize_nearest", "upsample_like",
+    "upsample_conv3x3", "seg_head_fused",
+    "seg_head_fused_train", "depth_stage1_fused_train",
+    "sr_attention", "sr_attention_plain",
+]

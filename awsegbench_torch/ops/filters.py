@@ -116,3 +116,69 @@ def rgb_to_gray_cv_u8(x_u8: torch.Tensor) -> torch.Tensor:
     g = (xi[..., 0] * 4899 + xi[..., 1] * 9617 + xi[..., 2] * 1868
          + (1 << 13)) >> 14
     return g.to(torch.uint8)[..., None]
+
+
+def box_filter(x: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """cv2.filter2D with a normalised ksize×ksize ones kernel (the local
+    mean) on NHWC batches, reflect-101 border. A direct 2-D sum of the
+    shifted maps (not two separable passes, which would round twice), in
+    the JAX package's order, then one multiply by 1/k²."""
+    pad = ksize // 2
+    xp = pad_axis(pad_axis(x, 1, pad, 'reflect'), 2, pad, 'reflect')
+    h, w = x.shape[1], x.shape[2]
+    out = None
+    for dy in range(ksize):
+        for dx in range(ksize):
+            term = xp[:, dy:dy + h, dx:dx + w]
+            out = term if out is None else out + term
+    return out * (1.0 / (ksize * ksize))
+
+
+def rgb_to_gray_cv(x: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(RGB2GRAY)'s weights on float NHWC RGB:
+    0.299 R + 0.587 G + 0.114 B → NHW1."""
+    w = const(tuple, (0.299, 0.587, 0.114), device=x.device, dtype=x.dtype)
+    return (x * w).sum(dim=-1, keepdim=True)
+
+
+def local_contrast(gray: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """sqrt(boxmean((g − boxmean(g))²)) on NHW1 batches: the 5×5 local
+    standard deviation."""
+    mean = box_filter(gray, ksize)
+    return torch.sqrt(box_filter((gray - mean) ** 2, ksize))
+
+
+def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(x.reshape(-1), q)`` (linear interpolation) as a
+    0-d tensor: the flattened values sorted, the two around q/100·(n − 1)
+    weighted by its fraction. The position and the weights are computed in
+    f32 on the host, as JAX computes them; ``torch.quantile`` would refuse
+    an input of more than 2^24 values."""
+    xs = torch.sort(x.reshape(-1)).values
+    n = xs.numel()
+    pos = np.float32(np.float32(q) / np.float32(100.0)) * np.float32(n - 1)
+    low = int(np.floor(pos))
+    high_w = np.float32(pos - np.float32(low))
+    low_w = np.float32(1.0) - high_w
+    lo, hi = min(max(low, 0), n - 1), min(max(int(np.ceil(pos)), 0), n - 1)
+    return xs[lo] * float(low_w) + xs[hi] * float(high_w)
+
+
+def depthwise_conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+                      dilation: int = 1) -> torch.Tensor:
+    """Depthwise 3×3 'SAME' correlation of NHWC ``x`` with zero padding, as
+    nine shifted multiply-adds summed in f32. ``kernel`` has the JAX
+    package's layout [3, 3, 1, C]; the result has the promoted dtype of x
+    and the kernel."""
+    d = dilation
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    h, w = x.shape[1], x.shape[2]
+    xp = torch.nn.functional.pad(x.to(dt), (0, 0, d, d, d, d))
+    k = kernel.to(dt)
+    out = None
+    for ty in range(3):
+        for tx in range(3):
+            sl = xp[:, ty * d:ty * d + h, tx * d:tx * d + w]
+            term = sl.float() * k[ty, tx, 0].float()
+            out = term if out is None else out + term
+    return out.to(dt)

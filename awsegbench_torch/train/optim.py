@@ -72,12 +72,25 @@ class Optimizer:
 
     @property
     def learning_rate(self) -> float:
-        return self.inner.param_groups[0]['lr']
+        return get_learning_rate(self.inner)
 
     @learning_rate.setter
     def learning_rate(self, lr: float) -> None:
-        for g in self.inner.param_groups:
-            g['lr'] = lr
+        set_learning_rate(self.inner, lr)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer,
+                      lr: float) -> torch.optim.Optimizer:
+    """Write ``lr`` into every parameter group of a torch optimiser;
+    returns the optimiser."""
+    for g in optimizer.param_groups:
+        g['lr'] = lr
+    return optimizer
+
+
+def get_learning_rate(optimizer: torch.optim.Optimizer) -> float:
+    """The learning rate of a torch optimiser's first parameter group."""
+    return optimizer.param_groups[0]['lr']
 
 
 def create_optimizer(params: Iterable[torch.Tensor], config: dict[str, Any],

@@ -7,6 +7,8 @@ is the epoch loop around them, with the JAX trainer's public surface
 ``load_checkpoint``, ``resume_training``), history keys and TensorBoard
 scalar names, and these of its behaviours:
 
+* ``model.pretrained`` (true when absent) grafts the cached pretrained
+  encoders into the model at construction (``models/pretrained.py``);
 * ``epochs``, ``grad_clip`` and ``num_classes`` are read from the top level
   of the config first, then from their sections;
 * ``loss.type: fog_density_aware`` gives ``FogDensityAwareLoss``, any
@@ -50,6 +52,7 @@ from ..data.pipeline import prefetch_to_device, prepare_batch
 from ..losses.fog_density import FogDensityAwareLoss, cross_entropy_loss
 from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
                            iou_from_confusion)
+from ..models.factory import init_model_variables
 from ..utils.config import check_tpu_section, get_device_config
 from ..utils.profiling import ThroughputMeter, trace
 from ..weather.corruption import WEATHER_CONDITIONS
@@ -231,6 +234,10 @@ class AdverseWeatherTrainer:
                                else config.get('seed', 42))
 
         self.model = model.to(device=self.device, dtype=torch.float32)
+        # pretrained encoders, where the JAX trainer grafts them (its state's
+        # init_model_variables): on by default, random init where no
+        # weights are cached
+        init_model_variables(self.model, config)
         opt_cfg = config.get('optimizer') or {}
         self.optimizer = create_optimizer(self.model.parameters(), opt_cfg,
                                           grad_clip=self.grad_clip)

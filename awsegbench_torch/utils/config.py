@@ -249,19 +249,15 @@ def get_device_config(device_setting: str = 'auto') -> str:
 
 
 def check_tpu_section(config: Any) -> None:
-    """Raises ``NotImplementedError`` for the ``tpu`` keys the port does
+    """Raises ``NotImplementedError`` for the ``tpu`` key the port does
     not implement yet: a ``mesh_shape`` other than ``'auto'`` (the
-    multi-device port, ROADMAP.md §1 item 7) and ``remat: true`` (in
-    ``tpu`` or ``model``; ROADMAP.md §1 item 4, its remat bullet)."""
+    multi-device port, ROADMAP.md §1 item 7). ``remat`` (in ``tpu`` or
+    ``model``) is taken: ``models.factory.create_model`` reads it."""
     tpu = config.get('tpu') or {}
     if tpu.get('mesh_shape', 'auto') != 'auto':
         raise NotImplementedError(
             f"tpu.mesh_shape={tpu['mesh_shape']!r} needs the multi-device "
             "port (ROADMAP.md §1, item 7); one card takes 'auto'")
-    if tpu.get('remat', False) or (config.get('model') or {}).get('remat'):
-        raise NotImplementedError(
-            'remat: true (checkpointing the encoder blocks) is not ported '
-            'yet (ROADMAP.md §1, item 4, remat)')
 
 
 def setup_logging(config: Config) -> None:

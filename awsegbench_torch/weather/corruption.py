@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from .._device import const, resolve_device
-from ..ops.filters import gaussian_blur_cv, gaussian_filter_scipy
+from ..ops.filters import (gaussian_blur_cv, gaussian_filter_scipy,
+                           local_contrast, percentile, rgb_to_gray_cv_u8)
 from ..ops.splat import pack_params, splat_coverage, splat_coverage_batched
 
 WEATHER_CONDITIONS = ('clean', 'fog', 'rain', 'snow', 'night')
@@ -75,6 +76,26 @@ MAX_SNOW_FLAKES = 200
 def quantize_uint8(x: torch.Tensor) -> torch.Tensor:
     """(clip(x, 0, 1) * 255).astype(uint8): truncation, like numpy."""
     return (torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def synthetic_depth(height: int, width: int,
+                    generator: torch.Generator | None = None,
+                    device: str | torch.device = 'cuda',
+                    noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Synthetic depth for fog (reference preprocessing.py:227-248):
+    gaussian_filter(y/h·100 + N(0, 10), σ = 2), floored at 1.0. The noise
+    (already ×10) is drawn from ``generator`` on ``device`` as [H, W], or
+    given as ``noise`` [..., H, W] (then on its device, with its batch
+    dims). Returns float32 of the noise's shape."""
+    if noise is None:
+        noise = torch.randn((height, width), generator=generator,
+                            device=resolve_device(device)) * 10.0
+    yy = torch.arange(height, dtype=torch.float32,
+                      device=noise.device)[:, None] / height
+    depth = gaussian_filter_scipy(
+        (yy * FOG_PARAMS['depth_scale'] + noise).reshape(
+            -1, height, width, 1), sigma=2.0).reshape(noise.shape)
+    return torch.clamp(depth, min=1.0)
 
 
 def _uniform(lo, hi, shape, g, dev):
@@ -177,11 +198,7 @@ def _corrupt_float(img_f, weather_ids, draws, coverage):
     col = lambda v: v.reshape(b, 1, 1, 1)   # noqa: E731  per-sample scalar
 
     # fog: I·t + A·(1 − t), t = exp(−β·depth), synthetic depth
-    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None] / h
-    depth = gaussian_filter_scipy(
-        (yy * FOG_PARAMS['depth_scale'] + draws['fog_noise'])[..., None],
-        sigma=2.0)[..., 0]
-    depth = torch.clamp(depth, min=1.0)
+    depth = synthetic_depth(h, w, noise=draws['fog_noise'])
     i_fog = draws['fog_intensity']
     beta_min, beta_max = FOG_PARAMS['beta_range']
     a_min, a_max = FOG_PARAMS['A_range']
@@ -334,3 +351,27 @@ def apply_weather_effect(image_u8: torch.Tensor, weather_type: str,
         raise ValueError(f'Unknown weather type: {weather_type}')
     return quantize_uint8(_BRANCHES[weather_type](
         image_u8.to(torch.float32) / 255.0, generator, draws, intensity))
+
+
+def fog_density_map(image: torch.Tensor,
+                    generator: torch.Generator | None = None,
+                    depth: torch.Tensor | None = None) -> torch.Tensor:
+    """Fog density for the fog-density-aware loss (reference
+    preprocessing.py:250-288), on the image's device: (1 − contrast /
+    p95(contrast)) · (0.3 + 0.7·depth/max(depth)), clipped to [0, 1].
+
+    ``image`` is [H, W, 3] float in [0, 1] (quantised to uint8 first, as
+    the reference) or uint8 (used as it is). ``depth`` [H, W] defaults to
+    :func:`synthetic_depth` drawn from ``generator``. The contrast is the
+    5×5 local standard deviation of the cv2 gray image; its 95th
+    percentile is linearly interpolated, as ``np.percentile``. Returns
+    [H, W] float32."""
+    h, w = image.shape[:2]
+    if depth is None:
+        depth = synthetic_depth(h, w, generator, device=image.device)
+    gray_u8 = image if image.dtype == torch.uint8 else quantize_uint8(image)
+    gray = rgb_to_gray_cv_u8(gray_u8[None]).to(torch.float32) / 255.0
+    contrast = local_contrast(gray, ksize=5)[0, :, :, 0]
+    fog_density = 1.0 - contrast / (percentile(contrast, 95.0) + 1e-8)
+    fog_density = fog_density * (0.3 + 0.7 * (depth / depth.max()))
+    return torch.clamp(fog_density, 0.0, 1.0)

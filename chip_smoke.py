@@ -104,6 +104,34 @@ Phases, each printing one JSON line:
     wall time and the sweep's images/s, and the loader alone (one epoch
     of the train split onto the card), beside the card's name and power
     limit.
+11. pretrained: synthetic state dicts (an HF MiT-B0 as ``.npz``, a
+    torchvision ResNet-50 as ``.pt``, the same MiT as a hand-written
+    ``.safetensors``; He-scaled weights, running variances near 1) in a
+    temporary ``$AWSEG_WEIGHTS_DIR``, grafted through the trainer's path
+    (``model.pretrained: true``) into the default ensemble on the card:
+    every grafted leaf equal to its source bit for bit, every other leaf
+    unmoved, ``apply_pretrained`` alone (from ``.npz`` or
+    ``.safetensors``) the same. Then ``EvalStep`` in f32 at batch 8,
+    512×1024, card against CPU (in calls of 2 there): logits within 2e-3,
+    confusion matrices within 1e-4 of the pixels; in bf16 at batch 8
+    over 7 mixed-weather batches, counted (K1–K3 must launch) and timed;
+    and a truncated ``resnet50.npz`` must leave DeepLab at random init
+    with a warning while MiT is grafted. Files' bytes, load + graft
+    seconds, eval images/s.
+12. remat: ``TrainStep`` on the train path's configuration with remat off
+    and then on, from the same weights: one step on the same batch and
+    draws, counted (K1 8 launches with remat off, 16 with it on), its
+    gradients held against each other at the train parity phase's
+    tolerances and its updated parameters within 2·lr; then, per setting,
+    5 timed steps (step ms, peak memory after
+    ``reset_peak_memory_stats``) and one profiled step (device busy ms).
+13. weather_extras: on the card against the CPU, ``fog_density_map`` at
+    1024×2048 (within 1e-5, the same synthetic depth), ``estimate_depth``
+    (1e-5), a label map's ``resize_nearest`` (bit for bit), and
+    ``WeatherAugmentationPipeline`` for each weather at 512×1024 and
+    1024×2048, counted (K4 and K5 must launch), its output against the
+    CPU's from the same draws (uint8 within 2 steps, 99.9% exact); max
+    |Δ| and times.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -111,7 +139,8 @@ comparisons compare f32 arithmetic. Before the last line it prints the
 kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
-(the evaluator's and the two CLIs' too) under ``launches_by_path``; the
+(the evaluator's, the two CLIs', the pretrained eval's, the remat steps'
+and the augmentation pipeline's too) under ``launches_by_path``; the
 kernels with two designs add their ``design`` per dtype and their
 per-design counts per path) and the card's ``nvidia-smi`` name and power
 limit; the last line
@@ -1775,6 +1804,561 @@ def phase_cli(dev):
     return train_launches, eval_launches
 
 
+# ---------------------------------------------------------------------------
+# pretrained encoders, remat, the rest of weather/ops
+# ---------------------------------------------------------------------------
+
+# MiT's per-stage spatial-reduction ratios, patch sizes and MLP ratio
+# (every variant shares them)
+MIT_SR, MIT_PATCH, MIT_MLP = (8, 4, 2, 1), (7, 3, 3, 3), 4
+
+
+def _he(rng, *shape):
+    """Normal values scaled by √(2 / fan-in) of an [out, in, ...] weight."""
+    import numpy as np
+    fan_in = int(np.prod(shape[1:]))
+    return (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)).astype(
+        np.float32)
+
+
+def mit_state_dict(variant='b0', seed=0, prefix='segformer.'):
+    """A Hugging Face ``SegformerModel`` state dict of MiT ``variant`` (the
+    transformers key schema, under ``prefix``) with seeded random values:
+    He-scaled conv and linear weights, LayerNorm scales near 1, small
+    biases. ``{name: float32 ndarray}``."""
+    import numpy as np
+    from awsegbench_torch.models.segformer import MIT_VARIANTS
+    hidden, depths = MIT_VARIANTS[variant]
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def small(n):
+        return (rng.standard_normal(n) * 0.02).astype(np.float32)
+
+    def ln(key, c):
+        sd[f'{key}.weight'] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        sd[f'{key}.bias'] = small(c)
+
+    def layer(key, cout, cin, *k):
+        sd[f'{key}.weight'] = _he(rng, cout, cin, *k)
+        sd[f'{key}.bias'] = small(cout)
+
+    cin = 3
+    for s, c in enumerate(hidden):
+        pe = f'{prefix}encoder.patch_embeddings.{s}'
+        layer(f'{pe}.proj', c, cin, MIT_PATCH[s], MIT_PATCH[s])
+        ln(f'{pe}.layer_norm', c)
+        for j in range(depths[s]):
+            hb = f'{prefix}encoder.block.{s}.{j}'
+            ln(f'{hb}.layer_norm_1', c)
+            ln(f'{hb}.layer_norm_2', c)
+            for name in ('self.query', 'self.key', 'self.value',
+                         'output.dense'):
+                layer(f'{hb}.attention.{name}', c, c)
+            if MIT_SR[s] > 1:
+                layer(f'{hb}.attention.self.sr', c, c, MIT_SR[s], MIT_SR[s])
+                ln(f'{hb}.attention.self.layer_norm', c)
+            layer(f'{hb}.mlp.dense1', c * MIT_MLP, c)
+            layer(f'{hb}.mlp.dwconv.dwconv', c * MIT_MLP, 1, 3, 3)
+            layer(f'{hb}.mlp.dense2', c, c * MIT_MLP)
+        ln(f'{prefix}encoder.layer_norm.{s}', c)
+        cin = c
+    return sd
+
+
+def resnet50_state_dict(seed=0):
+    """A torchvision ResNet-50 state dict (``conv1/bn1/layer{1..4}``, with
+    ``num_batches_tracked``) with seeded random values: He-scaled convs, BN
+    scales near 1 (near 0.25 for the last BN of each residual branch, as
+    the port's init), running means near 0 and variances near 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def bn(key, c, scale=1.0):
+        sd[f'{key}.weight'] = (rng.uniform(0.8, 1.2, c) * scale).astype(
+            np.float32)
+        sd[f'{key}.bias'] = (rng.standard_normal(c) * 0.02).astype(np.float32)
+        sd[f'{key}.running_mean'] = (rng.standard_normal(c) * 0.05).astype(
+            np.float32)
+        sd[f'{key}.running_var'] = rng.uniform(0.9, 1.1, c).astype(np.float32)
+        sd[f'{key}.num_batches_tracked'] = np.array(1000, np.int64)
+
+    sd['conv1.weight'] = _he(rng, 64, 3, 7, 7)
+    bn('bn1', 64)
+    cin = 64
+    for s, (n, width) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        for j in range(n):
+            tb = f'layer{s + 1}.{j}'
+            sd[f'{tb}.conv1.weight'] = _he(rng, width, cin, 1, 1)
+            bn(f'{tb}.bn1', width)
+            sd[f'{tb}.conv2.weight'] = _he(rng, width, width, 3, 3)
+            bn(f'{tb}.bn2', width)
+            sd[f'{tb}.conv3.weight'] = _he(rng, width * 4, width, 1, 1)
+            bn(f'{tb}.bn3', width * 4, 0.25)
+            if j == 0:
+                sd[f'{tb}.downsample.0.weight'] = _he(rng, width * 4, cin, 1, 1)
+                bn(f'{tb}.downsample.1', width * 4)
+            cin = width * 4
+    return sd
+
+
+def write_safetensors(path, sd) -> None:
+    """``sd`` as a ``.safetensors`` file of F32 tensors, written by hand: an
+    8-byte little-endian header length, the JSON header (name → dtype,
+    shape, data offsets), the raw little-endian data."""
+    import numpy as np
+    header, chunks, off = {}, [], 0
+    for k, v in sd.items():
+        b = np.ascontiguousarray(v, '<f4').tobytes()
+        header[k] = {'dtype': 'F32', 'shape': list(np.shape(v)),
+                     'data_offsets': [off, off + len(b)]}
+        chunks.append(b)
+        off += len(b)
+    h = json.dumps(header).encode()
+    h += b' ' * (-len(h) % 8)
+    Path(path).write_bytes(len(h).to_bytes(8, 'little') + h + b''.join(chunks))
+
+
+def leaf_digests(tensors) -> list:
+    """The sorted (shape, SHA-1 of the f32 bytes) of each tensor: equal
+    lists mean the same values, leaf for leaf, whatever their names."""
+    import hashlib
+
+    import numpy as np
+    return sorted((tuple(np.shape(t)), hashlib.sha1(np.ascontiguousarray(
+        t.detach().float().cpu().numpy() if hasattr(t, 'detach')
+        else np.asarray(t, np.float32)).tobytes()).hexdigest())
+        for t in tensors)
+
+
+class _Warnings:
+    """The warnings a logger emits while in a ``with`` block."""
+
+    def __init__(self, name):
+        import logging
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def phase_pretrained(dev):
+    """Pretrained encoders, from synthetic state dicts in a temporary
+    ``$AWSEG_WEIGHTS_DIR``: an HF MiT-B0 as ``.npz``, a torchvision
+    ResNet-50 as ``.pt`` (a ``state_dict`` wrapper, ``num_batches_tracked``
+    in it) and the same MiT as a hand-written ``.safetensors``. Grafted
+    through the trainer's path into the default ensemble on the card: every
+    grafted leaf equals its source bit for bit, nothing else moves, and
+    ``apply_pretrained`` alone (from either MiT file) grafts the same.
+    Then an f32 ``EvalStep`` at batch 8, 512×1024, clean images, card
+    against CPU (in calls of 2) within 2e-3 (as the parity phase), the
+    confusion matrices within 1e-4 of the pixels; the bf16 ``EvalStep`` at
+    batch 8 over 7 mixed-weather batches, counted (K1–K3 must launch) and
+    timed; and a truncated ``resnet50.npz`` leaves DeepLab at random init
+    with a warning while MiT is grafted. Returns the eval launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from awsegbench_torch.eval.step import EvalStep
+    from awsegbench_torch.models import apply_pretrained, create_model
+    from awsegbench_torch.train.trainer import AdverseWeatherTrainer
+
+    mit, r50 = mit_state_dict('b0', seed=11), resnet50_state_dict(seed=12)
+    r50_leaves = [v for k, v in r50.items()
+                  if not k.endswith('num_batches_tracked')]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dirs = {d: tmp / d for d in ('weights', 'safetensors', 'truncated')}
+        for d in dirs.values():
+            d.mkdir()
+        np.savez(dirs['weights'] / 'segformer_b0.npz', **mit)
+        torch.save({'state_dict': {k: torch.from_numpy(v)
+                                   for k, v in r50.items()}},
+                   dirs['weights'] / 'resnet50.pt')
+        write_safetensors(dirs['safetensors'] / 'segformer_b0.safetensors',
+                          mit)
+        np.savez(dirs['truncated'] / 'segformer_b0.npz', **mit)
+        np.savez(dirs['truncated'] / 'resnet50.npz', **r50)
+        bad = dirs['truncated'] / 'resnet50.npz'
+        bad.write_bytes(bad.read_bytes()[:bad.stat().st_size // 2])
+        file_bytes = {f'{d.name}/{p.name}': p.stat().st_size
+                      for d in dirs.values() for p in d.iterdir()}
+
+        # the trainer's path: model.pretrained is true, the cache in the env
+        model = create_model(MODEL_CFG, device=dev, seed=0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        config = {'model': dict(MODEL_CFG, pretrained=True),
+                  'tpu': {'precision': 'bf16'}, 'mlflow': {'enabled': False},
+                  'seed': 0}
+        old = os.environ.get('AWSEG_WEIGHTS_DIR')
+        os.environ['AWSEG_WEIGHTS_DIR'] = str(dirs['weights'])
+        try:
+            t0 = time.perf_counter()
+            trainer = AdverseWeatherTrainer(
+                model, [], [], config, device=dev,
+                checkpoint_dir=str(tmp / 'ck'), log_dir=str(tmp / 'logs'))
+            torch.cuda.synchronize()
+            trainer_init_s = time.perf_counter() - t0
+        finally:
+            if old is None:
+                del os.environ['AWSEG_WEIGHTS_DIR']
+            else:
+                os.environ['AWSEG_WEIGHTS_DIR'] = old
+        del trainer
+        mit_enc = model.segformer.MiTEncoder_0.state_dict()
+        r50_enc = model.deeplabv3plus.ResNetEncoder_0.state_dict()
+        if leaf_digests(mit_enc.values()) != leaf_digests(mit.values()) \
+                or leaf_digests(r50_enc.values()) != leaf_digests(r50_leaves):
+            raise AssertionError('pretrained: a grafted leaf differs from '
+                                 'its source')
+        grafted_keys = {k for k in before
+                        if k.startswith(('segformer.MiTEncoder_0.',
+                                         'deeplabv3plus.ResNetEncoder_0.'))}
+        state = model.state_dict()
+        if any(not torch.equal(state[k], v) for k, v in before.items()
+               if k not in grafted_keys) or len(grafted_keys) != len(
+                   mit_enc) + len(r50_enc):
+            raise AssertionError('pretrained: a leaf outside the encoders '
+                                 'moved')
+
+        def fresh_graft(weights_dir):
+            m = create_model(MODEL_CFG, device=dev, seed=0)
+            t0 = time.perf_counter()
+            with _Warnings('awsegbench_torch.models.pretrained') as warned:
+                grafted = apply_pretrained(m, MODEL_CFG, weights_dir)
+            torch.cuda.synchronize()
+            return m.state_dict(), grafted, warned, time.perf_counter() - t0
+
+        direct, grafted, _, graft_s = fresh_graft(dirs['weights'])
+        st, st_grafted, st_warned, st_s = fresh_graft(dirs['safetensors'])
+        bad_sd, bad_grafted, bad_warned, _ = fresh_graft(dirs['truncated'])
+    mit_keys = [k for k in state if k.startswith('segformer.MiTEncoder_0.')]
+    r50_keys = [k for k in state
+                if k.startswith('deeplabv3plus.ResNetEncoder_0.')]
+    if grafted != {'segformer': True, 'resnet': True} or any(
+            not torch.equal(direct[k], v) for k, v in state.items()):
+        raise AssertionError(f'pretrained: apply_pretrained alone {grafted} '
+                             'differs from the trainer\'s graft')
+    if st_grafted != {'segformer': True, 'resnet': False} or any(
+            not torch.equal(st[k], state[k]) for k in mit_keys) or not any(
+            'ResNet-50 weights not found' in m for m in st_warned):
+        raise AssertionError(f'pretrained: the .safetensors graft '
+                             f'{st_grafted}, {st_warned}')
+    if bad_grafted != {'segformer': True, 'resnet': False} or any(
+            not torch.equal(bad_sd[k], state[k]) for k in mit_keys) or any(
+            not torch.equal(bad_sd[k], before[k]) for k in r50_keys) \
+            or not any('Could not load pretrained resnet' in m
+                       for m in bad_warned):
+        raise AssertionError(f'pretrained: a truncated resnet50.npz gave '
+                             f'{bad_grafted}, warnings {bad_warned}')
+    del direct, st, bad_sd
+
+    # f32 card against CPU on 8 clean images (the same input on both sides):
+    # the card's EvalStep at batch 8, the CPU's over 4 calls of 2 (eval-mode
+    # BN: each image's outputs are its own)
+    g = torch.Generator().manual_seed(13)
+    images = torch.randint(0, 256, (B, H, W, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 19, (B, H, W), generator=g)
+    clean = torch.zeros(B, dtype=torch.int64)
+    outs, cms = {}, {}
+    for side, where, chunk in (('card', dev, B),
+                               ('cpu', torch.device('cpu'), 2)):
+        m = create_model(MODEL_CFG, device=where, seed=0)
+        m.load_state_dict(state)
+        step = EvalStep(m, 19, device=where, dtype=torch.float32)
+        t0 = time.perf_counter()
+        parts = [{k: v.float().cpu() for k, v in step(
+            images[i:i + chunk], labels[i:i + chunk], clean[i:i + chunk],
+            generator=torch.Generator(where).manual_seed(0)).items()}
+            for i in range(0, B, chunk)]
+        outs[side] = {k: torch.cat([o[k] for o in parts]) for k in parts[0]}
+        cms[side] = (step.cm.cpu(), time.perf_counter() - t0)
+        del step, m, parts
+    errs = {k: max_err(outs['card'][k], outs['cpu'][k]) for k in outs['cpu']}
+    logit_scale = outs['cpu']['segmentation'].abs().max().item()
+    cm_diff = int((cms['card'][0] - cms['cpu'][0]).abs().sum())
+    if not all(errs[k] <= 2e-3 for k in ('segmentation', 'segformer_seg',
+                                          'deeplabv3plus_seg')) \
+            or int(cms['card'][0].sum()) != int(cms['cpu'][0].sum()) \
+            or cm_diff > 1e-4 * int(cms['cpu'][0].sum()):
+        raise AssertionError(f'pretrained: card and CPU differ: {errs}, '
+                             f'confusion matrices by {cm_diff} pixels')
+    del outs
+
+    # bf16 EvalStep at batch 8, counted and timed
+    step = EvalStep(model, 19, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(14)
+    batches = []
+    for i in range(7):
+        lab = torch.randint(0, 19, (B, H, W), generator=g, device=dev)
+        lab[:, :16] = 255
+        batches.append((torch.randint(0, 256, (B, H, W, 3), generator=g,
+                                      device=dev, dtype=torch.uint8),
+                        lab, (torch.arange(B, device=dev) + i) % 5))
+
+    def run():
+        for batch in batches[:2]:
+            step(*batch, generator=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches[2:]:
+            out = step(*batch, generator=g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    (dt, out), launches = run_counted(run, EVAL_COUNTERS, 'pretrained eval')
+    bf16_scale = out['segmentation'].float().abs().max().item()
+    n_valid = sum(int((lab != 255).sum()) for _, lab, _ in batches)
+    if int(step.cm.sum()) != n_valid or not math.isfinite(bf16_scale) \
+            or not torch.isfinite(step.dsum):
+        raise AssertionError(f'pretrained eval: cm {int(step.cm.sum())} of '
+                             f'{n_valid}, logit scale {bf16_scale}')
+    emit({'phase': 'pretrained', 'nvidia_smi': nvidia_smi(),
+          'file_bytes': file_bytes, 'trainer_init_with_graft_s':
+          trainer_init_s, 'load_graft_s': graft_s,
+          'load_graft_safetensors_s': st_s,
+          'grafted_leaves': len(mit_enc) + len(r50_enc),
+          'fallback_warnings': bad_warned,
+          'parity_f32_batch8_max_abs_err': errs,
+          'parity_logit_scale': logit_scale, 'parity_cm_diff_pixels':
+          cm_diff, 'cpu_seconds': cms['cpu'][1],
+          'eval_images_per_s': 5 * B / dt, 'eval_step_ms': dt / 5 * 1e3,
+          'eval_bf16_logit_scale': bf16_scale, 'batch': B, 'hw': [H, W],
+          'launches': launches})
+    del step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_remat(dev):
+    """``TrainStep`` on the train path's configuration (depth heads, bf16,
+    512×1024, batch 8, bench.py's AdamW) with remat off and then on, on the
+    same initial weights: one step with the same batch and draws, counted
+    (K1 must launch 8 times with remat off, 16 with it on: the 8 blocks
+    recompute), whose gradients are held against each other at the train
+    parity phase's tolerances and whose updated parameters must lie within
+    2·lr of each other (one AdamW step moves a value by about lr);
+    then 2 warm-up and 5 timed steps (peak memory between
+    ``reset_peak_memory_stats`` and the end) and one profiled step, for
+    each setting. The same step with remat off once more gives the card's
+    own run-to-run spread of those gradients (cuDNN's backward and the
+    BN reductions are not bit-reproducible), reported beside. Returns the
+    launches by setting."""
+    import torch
+    from awsegbench_torch.data.pipeline import draw_augment
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.step import TrainStep
+    from awsegbench_torch.weather.corruption import draw_corruption
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    batches = []
+    for i in range(8):
+        labels = torch.randint(0, 19, (B, H, W), generator=g, device=dev)
+        labels[:, :16] = 255
+        batches.append((torch.randint(0, 256, (B, H, W, 3), generator=g,
+                                      device=dev, dtype=torch.uint8),
+                        labels, (torch.arange(B, device=dev) + i) % 5))
+    seed = lambda v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
+    draws = {'corruption': draw_corruption(batches[0][2], H, W, g),
+             'augment': draw_augment(B, g, dev),
+             'fog_u': torch.rand((B, H, W), generator=g, device=dev),
+             'seed': seed(7), 'segformer_depth_seed': seed(-8),
+             'deeplab_depth_seed': seed(9),
+             'aspp_mask': torch.rand((B, H // 16, W // 16, 256), generator=g,
+                                     device=dev) < 0.5}
+    res = {}
+    for name, remat in (('off', False), ('on', True), ('off_again', False)):
+        model = create_model({'model': dict(TRAIN_CFG, remat=remat)},
+                             device=dev, seed=0)
+        step = TrainStep(model, device=dev)
+        loss, launches = run_counted(
+            lambda: step(*batches[0], draws=draws), TRAIN_COUNTERS,
+            f'remat={remat}')
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                 for n, p in model.named_parameters()}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        if name == 'off_again':
+            res[name] = dict(grads=grads)
+            del step, model
+            break
+        gs = torch.Generator(device=dev).manual_seed(16)
+        for batch in batches[1:3]:
+            step(*batch, generator=gs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for batch in batches[3:]:
+            step(*batch, generator=gs)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_step(lambda: step(*batches[0], generator=gs))
+        res[name] = dict(loss={k: float(v) for k, v in loss.items()},
+                         launches=launches, grads=grads, params=params,
+                         step_ms=step_ms, peak_mem_gib=peak,
+                         device_busy_ms=prof['device_busy_ms'],
+                         profiled_step_wall_ms=prof['profiled_step_wall_ms'])
+        del step, model
+        torch.cuda.empty_cache()
+    off, on = res['off'], res['on']
+    k1 = (off['launches']['sr_attention'], on['launches']['sr_attention'])
+    if k1 != (8, 16):
+        raise AssertionError(f'remat: K1 launched {k1} times per step with '
+                             'remat off and on, expected (8, 16)')
+
+    def spread(grads, what):
+        """(the SegFormer and ensemble leaves' excess over rtol 2e-3 per
+        leaf scale, DeepLab's largest relative L2 error, the bit-equal
+        share of leaves) of ``grads`` against remat off's."""
+        top = max(t.abs().max().item() for t in off['grads'].values())
+        held = dl_rel = 0.0
+        for name, want in off['grads'].items():
+            got, scale = grads[name], want.abs().max().item()
+            if scale < 1e-6 * top:
+                if got.abs().max().item() >= 1e-6 * top:
+                    raise AssertionError(f'{what} {name}: grad not '
+                                         'negligible')
+                continue
+            if name.startswith('deeplabv3plus.'):
+                dl_rel = max(dl_rel, ((got - want).norm()
+                                      / want.norm()).item())
+                continue
+            rel = ((got - want).abs() - 2e-3 * want.abs()).max().item() \
+                / scale
+            held = max(held, rel)
+            if rel > 2e-3:
+                raise AssertionError(f'{what} {name}: gradients differ by '
+                                     f'{rel} of the leaf scale')
+        exact = sum(torch.equal(grads[n], g) for n, g in
+                    off['grads'].items()) / len(off['grads'])
+        return held, dl_rel, exact
+
+    held, dl_rel, exact = spread(on['grads'], 'remat')
+    floor = spread(res['off_again']['grads'], 'remat off twice')
+    lr = 1e-3                               # bench.py's AdamW
+    param_err = max(max_err(on['params'][n], p)
+                    for n, p in off['params'].items())
+    if dl_rel > 0.1 or param_err > 2 * lr or not math.isfinite(
+            on['loss']['total_loss']) or abs(
+            on['loss']['total_loss'] - off['loss']['total_loss']) > 1e-3 * abs(
+            off['loss']['total_loss']):
+        raise AssertionError(f'remat: DeepLab grads {dl_rel}, params '
+                             f'{param_err}, losses {off["loss"]} '
+                             f'{on["loss"]}')
+    emit({'phase': 'remat', 'nvidia_smi': nvidia_smi(), 'batch': B,
+          'hw': [H, W], 'compute_dtype': 'bfloat16',
+          'k1_launches_per_step': {'off': k1[0], 'on': k1[1]},
+          'grad_excess_over_rtol_per_leaf_scale': held,
+          'deeplab_grad_max_rel_l2': dl_rel,
+          'grads_bit_equal_share': exact, 'param_max_abs_err': param_err,
+          'off_twice': dict(zip(('grad_excess_over_rtol_per_leaf_scale',
+                                 'deeplab_grad_max_rel_l2',
+                                 'grads_bit_equal_share'), floor)),
+          **{f'{k}_{s}': r[k] for s, r in (('off', off), ('on', on))
+             for k in ('loss', 'step_ms', 'peak_mem_gib', 'device_busy_ms',
+                       'profiled_step_wall_ms')},
+          'launches': {'remat_off': off['launches'],
+                       'remat_on': on['launches']}})
+    return off['launches'], on['launches']
+
+
+AUG_SHAPES = ((H, W),) + K5_SHAPES[:1]      # K4 at 512×1024, K5 at 1024×2048
+
+
+def phase_weather_extras(dev):
+    """The rest of weather/ops on the card against the CPU: the fog density
+    map at 1024×2048 (the same synthetic depth on both sides), the
+    single-image depth estimate, a label map's nearest resize (bit for
+    bit) and ``WeatherAugmentationPipeline`` for each weather at 512×1024
+    (rain and snow through K4) and 1024×2048 (through K5), counted (K4 and
+    K5 must launch). The pipeline's output on the card is held against the
+    same composition on the CPU, from the same draws (read back from a
+    generator in the pipeline's state): uint8 within 2 steps (one step of
+    the corruption, scaled by the style transfer's up to 1.3 and rounded)
+    and 99.9% exact. Max |Δ| and times. Returns the pipeline's launches."""
+    import torch
+    from awsegbench_torch.ops.resize import resize_nearest
+    from awsegbench_torch.weather import (WeatherAugmentationPipeline,
+                                          corruption, estimate_depth,
+                                          fog_density_map, synthetic_depth)
+    from awsegbench_torch.weather.augmentation import (DEFAULT_INTENSITIES,
+                                                       style_transfer)
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    hh, ww = K5_SHAPES[0]
+    image = torch.randint(0, 256, (hh, ww, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    depth = synthetic_depth(hh, ww, g, device=dev)
+    labels = torch.randint(0, 19, (hh, ww), generator=g, device=dev)
+    funcs = {'fog_density_map': lambda im, d, lab: fog_density_map(
+                 im, depth=d),
+             'estimate_depth': lambda im, d, lab: estimate_depth(im),
+             'resize_nearest_labels': lambda im, d, lab: resize_nearest(
+                 lab, (H, W))}
+    errs, ms = {}, {}
+    for name, fn in funcs.items():
+        got = fn(image, depth, labels)
+        want = fn(image.cpu(), depth.cpu(), labels.cpu())
+        errs[name] = max_err(got.cpu(), want)
+        ms[name] = time_ms(lambda: fn(image, depth, labels), reps=5)
+        if got.shape != want.shape or errs[name] > (
+                0 if name.startswith('resize') else 1e-5):
+            raise AssertionError(f'{name}: card and CPU differ by '
+                                 f'{errs[name]}')
+
+    pipe = WeatherAugmentationPipeline()
+    names = list(pipe.weather_intensities)
+    runs = []
+    for hw in AUG_SHAPES:
+        img = torch.randint(0, 256, (*hw, 3), generator=g, device=dev,
+                            dtype=torch.uint8)
+        for i, weather in enumerate(names):
+            runs.append((hw, weather, img, 100 * len(runs) + i))
+
+    def augment(hw, weather, img, seed):
+        return pipe.apply_domain_adaptation_augmentation(
+            img, torch.Generator(device=dev).manual_seed(seed), weather)
+
+    outs, launches = run_counted(lambda: [augment(*r) for r in runs],
+                                 SINGLE_COUNTERS, 'augmentation')
+    aug = {}
+    for (hw, weather, img, seed), out in zip(runs, outs):
+        gr = torch.Generator(device=dev).manual_seed(seed)
+        torch.randint(len(names), (), generator=gr, device=dev)
+        styled = bool(torch.rand((), generator=gr, device=dev)
+                      < pipe.style_transfer_prob)
+        wid = torch.tensor([corruption.WEATHER_IDS[weather]], device=dev)
+        draws = corruption.draw_corruption(wid, *hw, gr,
+                                           DEFAULT_INTENSITIES[weather])
+        cpu = corruption.apply_weather_effect(
+            img.cpu(), weather, draws={k: v.cpu() for k, v in draws.items()})
+        cpu = style_transfer(cpu, weather) if styled else cpu
+        diff = (out.cpu().int() - cpu.int()).abs()
+        key = f'{weather}_{hw[0]}x{hw[1]}'
+        aug[key] = {'max_abs_diff': int(diff.max()), 'styled': styled,
+                    'exact': float((diff == 0).float().mean()),
+                    'ms': time_ms(lambda: augment(hw, weather, img, seed),
+                                  reps=5)}
+        if out.shape != img.shape or int(diff.max()) > 2 \
+                or aug[key]['exact'] < 0.999:
+            raise AssertionError(f'augmentation {key}: card and CPU differ: '
+                                 f'{aug[key]}')
+    emit({'phase': 'weather_extras', 'nvidia_smi': nvidia_smi(),
+          'hw': [hh, ww], 'max_abs_err': errs, 'ms': ms,
+          'augmentation': aug, 'launches': launches})
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1824,6 +2408,9 @@ def main() -> int:
     single_recs, single_launches = phase_single_image(dev)
     evaluator_launches = phase_evaluator(dev)
     cli_train_launches, cli_evaluate_launches = phase_cli(dev)
+    pretrained_launches = phase_pretrained(dev)
+    remat_off_launches, remat_on_launches = phase_remat(dev)
+    augment_launches = phase_weather_extras(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -1837,7 +2424,10 @@ def main() -> int:
              'single_image': single_launches,
              'evaluator': evaluator_launches,
              'cli_train': cli_train_launches,
-             'cli_evaluate': cli_evaluate_launches}
+             'cli_evaluate': cli_evaluate_launches,
+             'pretrained': pretrained_launches,
+             'remat_off': remat_off_launches, 'remat_on': remat_on_launches,
+             'weather_extras': augment_launches}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):

@@ -6,7 +6,8 @@ One YAML file and its ``CONFIG_SECTION__KEY`` overrides give equal dicts
 through both ``load_config``s; the defaults, the typed parsing of override
 values and ``validate_config``'s errors are the same. The device layer is
 the port's own: ``'auto'`` means the card and raises without one, ``'cpu'``
-is the CPU, and the ``tpu`` keys the port does not implement raise.
+is the CPU, the ``tpu`` key the port does not implement raises
+(``mesh_shape``), and ``remat`` builds a model whose encoder checkpoints.
 """
 
 import logging
@@ -21,7 +22,8 @@ from awsegbench.utils import config as jconfig
 from awsegbench.utils import profiling as jprofiling
 from awsegbench_torch.core.prng import RngStreams
 from awsegbench_torch.eval.evaluator import Evaluator
-from awsegbench_torch.models.factory import create_model
+from awsegbench_torch.models import segformer
+from awsegbench_torch.models.factory import create_model, init_model_variables
 from awsegbench_torch.utils import config as pconfig
 from awsegbench_torch.utils import profiling as pprofiling
 
@@ -158,14 +160,11 @@ def test_device_config():
 TPU_RAISES = [
     ({'tpu': {'mesh_shape': {'data': 2, 'model': 2}}}, 'item 7'),
     ({'tpu': {'mesh_shape': [4]}}, 'item 7'),
-    ({'tpu': {'remat': True}}, 'remat'),
-    ({'model': {'remat': True}}, 'remat'),
 ]
 
 
 @pytest.mark.parametrize('cfg,match', TPU_RAISES,
-                         ids=['mesh_dict', 'mesh_list', 'tpu_remat',
-                              'model_remat'])
+                         ids=['mesh_dict', 'mesh_list'])
 def test_tpu_keys_the_port_lacks_raise(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
         pconfig.check_tpu_section(cfg)
@@ -176,6 +175,25 @@ def test_tpu_keys_the_port_lacks_raise(cfg, match):
     if 'mesh_shape' in cfg.get('tpu', {}):
         with pytest.raises(NotImplementedError, match=match):
             Evaluator(torch.nn.Identity(), whole, device='cpu')
+
+
+@pytest.mark.parametrize('cfg', [{'tpu': {'remat': True}},
+                                 {'model': {'remat': True}}],
+                         ids=['tpu_remat', 'model_remat'])
+def test_remat_is_taken(cfg, monkeypatch):
+    """``remat: true`` (in ``tpu`` or ``model``) passes the check and
+    builds a model whose encoder checkpoints each block in training."""
+    pconfig.check_tpu_section(cfg)
+    whole = {'model': {'type': 'segformer', 'num_classes': 3,
+                       'include_depth': False, **cfg.get('model', {})},
+             'tpu': cfg.get('tpu', {})}
+    model = create_model(whole, device='cpu').train()
+    calls = []
+    real = segformer.checkpoint
+    monkeypatch.setattr(segformer, 'checkpoint',
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    model(torch.zeros(1, 32, 32, 3), torch.tensor(1, dtype=torch.int32))
+    assert model.MiTEncoder_0.remat and len(calls) == 8
 
 
 def test_tpu_keys_the_port_takes():
@@ -196,9 +214,17 @@ def test_create_model_seed_from_config(caplog):
     assert torch.equal(a, first({'model': seg}, seed=5))
     assert not torch.equal(a, first({'model': seg, 'seed': 6}))
     assert torch.equal(first(seg), first(seg, seed=0))
+    # create_model reads no weights; the trainer's graft warns, with the JAX
+    # package's text, when the cache directory is missing
     with caplog.at_level(logging.WARNING):
-        first({'model': dict(seg, pretrained=True)})
-    assert 'pretrained encoders are not loaded yet' in caplog.text
+        model = create_model({'model': dict(seg, pretrained=True)},
+                             device='cpu', seed=5)
+        assert not caplog.text
+        init_model_variables(model, {'model': dict(seg, pretrained=True)},
+                             weights_dir='/nonexistent/weights')
+    assert torch.equal(next(model.parameters()), a)
+    assert ('Pretrained SegFormer (b0) weights not found in '
+            '/nonexistent/weights — using random init') in caplog.text
 
 
 def test_rng_streams():
