@@ -15,7 +15,8 @@ Entry points (``models.factory.create_model``, ``eval.step.EvalStep``,
 ``eval.evaluator.Evaluator``, ``train.step.TrainStep``,
 ``weather.corruption.corrupt_batch``) run on ``device='cuda'`` unless the
 caller asks for ``device='cpu'``. Importing the package or any of its
-subpackages builds no kernel.
+subpackages builds no kernel; the top-level names below are imported on
+first use.
 
 The package exports the JAX package's top-level names; its
 ``_JAX_AVAILABLE`` and ``_TORCH_AVAILABLE`` flags have no counterpart
@@ -23,21 +24,25 @@ The package exports the JAX package's top-level names; its
 """
 
 from ._device import resolve_device
-from .losses.fog_density import FogDensityAwareLoss
-from .metrics.robustness import RobustnessMetrics
-from .models.deeplab import DeepLabV3PlusModel
-from .models.ensemble import EnsembleModel
-from .models.segformer import SegFormerModel
-from .train.trainer import AdverseWeatherTrainer
-from .utils.config import Config
 
-__all__ = [
-    "SegFormerModel",
-    "DeepLabV3PlusModel",
-    "EnsembleModel",
-    "FogDensityAwareLoss",
-    "AdverseWeatherTrainer",
-    "RobustnessMetrics",
-    "Config",
-    "resolve_device",
-]
+# The top-level names are imported on first use, so a process that loads a
+# serving artifact (``serving.py``) imports the kernel ops and not the
+# models, losses or trainer.
+_LAZY = {
+    "SegFormerModel": ".models.segformer",
+    "DeepLabV3PlusModel": ".models.deeplab",
+    "EnsembleModel": ".models.ensemble",
+    "FogDensityAwareLoss": ".losses.fog_density",
+    "AdverseWeatherTrainer": ".train.trainer",
+    "RobustnessMetrics": ".metrics.robustness",
+    "Config": ".utils.config",
+}
+
+__all__ = [*_LAZY, "resolve_device"]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

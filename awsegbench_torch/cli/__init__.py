@@ -1,1 +1,1 @@
-"""Command-line entry points: train and evaluate."""
+"""Command-line entry points: train, evaluate and export_serving."""

@@ -3,7 +3,7 @@
 Importing these builds and loads no kernel: each wrapper builds its
 library with ``nvcc`` at its first launch on a CUDA tensor (``_build.py``).
 The JAX package's ``sr_attention_reference`` is ``sr_attention_plain``
-here.
+here. Importing the package registers the custom ops of ``library.py``.
 """
 
 from .attention import sr_attention, sr_attention_plain
@@ -24,6 +24,8 @@ from .headkernels import seg_head_fused
 from .headkernels_train import seg_head_fused_train
 from .resize import resize_bilinear, resize_linear, resize_nearest, upsample_like
 from .upconv import upsample_conv3x3
+
+from . import library  # noqa: F401  (registers the awseg:: ops)
 
 __all__ = [
     "gaussian_blur_cv", "gaussian_filter_scipy", "box_filter", "laplacian",

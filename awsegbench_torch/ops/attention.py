@@ -167,12 +167,14 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """``softmax(q·kᵀ·scale)·v``: q [G, N, D], k/v [G, M, D] → [G, N, D]
     in q's dtype. CUDA tensors launch the kernel (its backward kernel
-    under autograd), CPU tensors take the plain version."""
-    if not q.is_cuda:
-        return sr_attention_plain(q, k, v, scale)
+    under autograd), CPU tensors take the plain version. Without a
+    gradient it is the custom op ``awseg::sr_attention`` (``ops/
+    library.py``) on either device, so a traced graph holds the op."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _SRAttention.apply(q, k, v, scale)
-    return _launch(q, k, v, scale)
+        if q.is_cuda:
+            return _SRAttention.apply(q, k, v, scale)
+        return sr_attention_plain(q, k, v, scale)
+    return torch.ops.awseg.sr_attention(q, k, v, scale)
 
 
 sr_attention.launches = 0

@@ -204,10 +204,15 @@ def seg_core(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
              wp: torch.Tensor, bp: torch.Tensor, r: int) -> torch.Tensor:
     """Fused phase passes + affine + ReLU + 1×1: P [B, h, w, 9, C] →
     [B, h·r, w·r, nc] (interior values; the 1-px border is pasted after).
-    CUDA tensors launch the kernel, CPU tensors take the plain version."""
-    if P.is_cuda:
-        return _launch(P, a1, c1, wp, bp, r)
-    return seg_core_plain(P, a1, c1, wp, bp, r)
+    CUDA tensors launch the kernel, CPU tensors take the plain version.
+    Without a gradient it is the custom op ``awseg::seg_core`` (``ops/
+    library.py``) on either device, so a traced graph holds the op."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (P, a1, c1, wp, bp)):
+        if P.is_cuda:
+            return _launch(P, a1, c1, wp, bp, r)
+        return seg_core_plain(P, a1, c1, wp, bp, r)
+    return torch.ops.awseg.seg_core(P, a1, c1, wp, bp, r)
 
 
 seg_core.launches = 0

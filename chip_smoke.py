@@ -28,7 +28,10 @@ Phases, each printing one JSON line:
    5 timed batches; images/s, and each kernel's launch count in that run
    (every count must be > 0, and K1's bf16 calls must have gone through
    its tensor-core design); the confusion-matrix total must equal the
-   count of non-ignored pixels and the depth sum must be finite.
+   count of non-ignored pixels and the depth sum must be finite. The
+   host cost of the custom ops (``ops/library.py``) the step calls K1 and
+   K2 through: one step's nine calls through the ops against the bare
+   launches (``op_dispatch``, µs per step, host clock).
    Then where a step's time goes: each layer (corruption, the two
    members, the confusion matrix) timed alone, and device time by kernel
    over one profiled step.
@@ -132,6 +135,21 @@ Phases, each printing one JSON line:
     1024×2048, counted (K4 and K5 must launch), its output against the
     CPU's from the same draws (uint8 within 2 steps, 99.9% exact); max
     |Δ| and times.
+14. serving: ``awsegbench_torch.serving`` with the main path's model. A
+    batch-polymorphic bf16 artifact at 512×1024 exported on the card
+    (``torch.export``; K1 and K2 are the custom ops ``awseg::sr_attention``
+    and ``awseg::seg_core``), saved and loaded back by
+    ``ServingModel.load``: one batch-1 request counted (K1 8 launches, K2
+    1, K3 none), its batch-8 outputs against the in-process
+    ``build_serving_fn`` forward (within one bf16 step of the logits'
+    scale; 0 expected), a wrong shape and a wrong dtype refused; images/s
+    at batch 8 and p50/p90 latency at batch 1 (host clock, synchronised),
+    the same for the in-process forward, one profiled batch-8 request. A
+    batch-1 artifact at 1024×2048 and its latency. An f32 artifact exported
+    on the card for ('cuda', 'cpu') against itself loaded on the CPU
+    (within 2e-3), and an f32 artifact exported on the CPU, moved to the
+    card at load: counted (K1 8, K2 1, both ``simt_f32``) and equal to the
+    card-exported one. Export and load seconds and artifact MB.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -139,8 +157,9 @@ comparisons compare f32 arithmetic. Before the last line it prints the
 kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
-(the evaluator's, the two CLIs', the pretrained eval's, the remat steps'
-and the augmentation pipeline's too) under ``launches_by_path``; the
+(the evaluator's, the two CLIs', the pretrained eval's, the remat steps',
+the augmentation pipeline's and one serving request's too) under
+``launches_by_path``; the
 kernels with two designs add their ``design`` per dtype and their
 per-design counts per path) and the card's ``nvidia-smi`` name and power
 limit; the last line
@@ -621,15 +640,68 @@ def phase_main_path(dev):
     dsum = float(step.dsum)
     if not torch.isfinite(step.dsum):
         raise AssertionError(f'depth sum is not finite: {dsum}')
+    dispatch = op_dispatch_us(dev)
+    dispatch['added_share_of_step'] = dispatch['added_us_per_step'] / (
+        dt / 5 * 1e6)
     emit({'phase': 'main_path', 'images_per_s': 5 * B / dt,
           'step_ms': dt / 5 * 1e3, 'batch': B, 'hw': [H, W],
           'dtype': 'bfloat16', 'params': count_parameters(step.model),
           'launches': launches, 'cm_total': cm_total, 'depth_sum': dsum,
-          'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30})
+          'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+          'op_dispatch': dispatch})
     phase_layers(step, batches[0], g)
     del step, model
     torch.cuda.empty_cache()
     return launches
+
+
+def op_dispatch_us(dev, steps: int = 20, rounds: int = 5) -> dict:
+    """Host cost of the custom ops on the eval step's path: one step's nine
+    kernel calls (K1 twice at each MiT stage's shape, K2 once, bf16) through
+    ``torch.ops.awseg.*``, as the step makes them, and through the bare
+    ctypes launches that the ops' CUDA kernels are, under inference mode, on
+    the host clock. ``steps`` steps' calls are enqueued before one
+    synchronise (far fewer launches than the card's queue holds, so the
+    loop times the host's enqueue, not the card); the two are timed in
+    turn, ``rounds`` times each. Microseconds per step, the medians."""
+    import torch
+    from awsegbench_torch.ops import attention, headkernels
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    m, d = H * W // 1024, 32
+    k1 = [tuple(randn(B * heads, n, d).bfloat16() for n in
+                ((H >> (i + 2)) * (W >> (i + 2)), m, m))
+          for i, heads in enumerate((1, 2, 5, 8))]
+    k2 = seg_core_inputs(randn, (B, H // 32, W // 32, 9, 256), 19,
+                         torch.bfloat16)
+    ways = {'op': (torch.ops.awseg.sr_attention, torch.ops.awseg.seg_core),
+            'launch': (attention._launch, headkernels._launch)}
+
+    def one_step(sr, seg):
+        for q, k, v in k1:
+            sr(q, k, v, d ** -0.5)
+            sr(q, k, v, d ** -0.5)
+        seg(*k2, 32)
+
+    us = {way: [] for way in ways}
+    with torch.inference_mode():
+        for fns in ways.values():
+            one_step(*fns)
+        for _ in range(rounds):
+            for way, fns in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    one_step(*fns)
+                us[way].append((time.perf_counter() - t0) / steps * 1e6)
+                torch.cuda.synchronize()
+    out = {f'{way}_us_per_step': statistics.median(t) for way, t in us.items()}
+    out['added_us_per_step'] = out['op_us_per_step'] - out[
+        'launch_us_per_step']
+    out['rounds_us'] = us
+    del k1, k2
+    return out
 
 
 def phase_layers(step, batch, g):
@@ -1185,13 +1257,10 @@ def counters():
         dk.d1_core_train_backward, ht.neighbor_pp_adjoint)}
 
 
-def run_counted(run, needed, what):
+def count_launches(run):
     """Every launch counter (and per-design count) set to 0, ``run()``, the
     counts read after it (all of them, by name; the per-design ones as
-    ``<name>.by_design``); raises if a kernel in ``needed`` never launched,
-    or if a needed wrapper with two designs (K1, K2, K6–K10) launched its
-    bf16 design ('mma_bf16') no time or its f32 design at all: the paths
-    run in bf16."""
+    ``<name>.by_design``). Returns ``run()``'s result and the counts."""
     import torch
     fns = counters()
     torch.cuda.synchronize()
@@ -1205,6 +1274,15 @@ def run_counted(run, needed, what):
     launches.update({f'{name}.by_design': dict(fn.launches_by_design)
                      for name, fn in fns.items()
                      if hasattr(fn, 'launches_by_design')})
+    return out, launches
+
+
+def run_counted(run, needed, what):
+    """:func:`count_launches` of ``run``; raises if a kernel in ``needed``
+    never launched, or if a needed wrapper with two designs (K1, K2,
+    K6–K10) launched its bf16 design ('mma_bf16') no time or its f32
+    design at all: the paths run in bf16."""
+    out, launches = count_launches(run)
     designs = [launches[f'{k}.by_design'] for k in needed
                if f'{k}.by_design' in launches]
     if min(launches[k] for k in needed) <= 0 or any(
@@ -2359,6 +2437,166 @@ def phase_weather_extras(dev):
     return launches
 
 
+SERVING_COUNTERS = ('sr_attention', 'seg_core')
+SERVING_LARGE = K5_SHAPES[0]          # Cityscapes' 1024×2048, batch 1
+
+
+def latency_ms(fn, reps: int) -> list:
+    """Host-clock ms of ``reps`` calls of ``fn``, each ended by a
+    synchronise, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def percentiles(ms: list) -> dict:
+    q = statistics.quantiles(ms, n=10)
+    return {'p50_ms': statistics.median(ms), 'p90_ms': q[8], 'n': len(ms)}
+
+
+def phase_serving(dev):
+    """``serving.py`` on the card with the main path's model (the faithful
+    ensemble with depth heads, seeded): a ``'poly'`` bf16 artifact at
+    512×1024 exported on the card, saved and loaded back through
+    ``ServingModel.load``. One batch-1 request counted (K1 8 launches, K2
+    1, K3 none: serving applies no corruption); its batch-8 outputs against
+    the in-process ``build_serving_fn`` forward on the same weights; images
+    per second at batch 8 (input on the card, and from the host), p50/p90
+    latency at batch 1 from the host (host clock, synchronised), the same
+    two for the in-process forward, one profiled batch-8 request; a wrong
+    shape refused. A batch-1 bf16
+    artifact at 1024×2048 and its latency. An f32 artifact exported on the
+    card for ('cuda', 'cpu') against the same artifact loaded on the CPU
+    at batch 1 (within 2e-3, the parity phase's logit tolerance), and an
+    f32 artifact exported on the CPU for ('cpu', 'cuda'), loaded on the
+    card: counted (K1 and K2 must launch there) and equal to the
+    card-exported one. Export and load seconds and artifact MB. Returns
+    the counted request's launches."""
+    import copy
+    import tempfile
+
+    import torch
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.serving import (ServingModel, build_serving_fn,
+                                          export_serving,
+                                          save_serving_artifact)
+
+    model = create_model(MODEL_CFG, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(18)
+    x8 = torch.randint(0, 256, (B, H, W, 3), generator=g, device=dev,
+                       dtype=torch.uint8)
+    x8_host, x1_host = x8.cpu().numpy(), x8[:1].cpu().numpy()
+    res = {'nvidia_smi': nvidia_smi(), 'hw': [H, W],
+           'export_s': {}, 'artifact_mb': {}, 'load_s': {}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def artifact(name, m, hw, batch, precision, platforms, device):
+            t0 = time.perf_counter()
+            blob = export_serving(m, hw, batch_size=batch,
+                                  precision=precision, platforms=platforms)
+            res['export_s'][name] = time.perf_counter() - t0
+            res['artifact_mb'][name] = len(blob) / 1e6
+            out = save_serving_artifact(
+                Path(tmp) / name, blob, {'input_shape': [batch, *hw, 3]})
+            t0 = time.perf_counter()
+            sm = ServingModel.load(out, device=device)
+            res['load_s'][name] = time.perf_counter() - t0
+            return out, sm
+
+        _, sm = artifact('poly_bf16', model, (H, W), 'poly', 'bf16',
+                         ('cuda',), None)
+        out1, launches = run_counted(lambda: sm.predict(x1_host),
+                                     SERVING_COUNTERS, 'serving')
+        if (launches['sr_attention'], launches['seg_core'],
+                launches['splat_coverage_batched']) != (8, 1, 0):
+            raise AssertionError(f'serving: a request launched {launches}, '
+                                 'expected K1 8, K2 1, K3 0')
+        got = sm.predict(x8_host)
+        serve = build_serving_fn(model, precision='bf16')
+        want = serve(x8)
+        scale = want['segmentation'].abs().max().item()
+        res['bf16_vs_direct_max_abs_diff'] = {
+            k: max_err(got[k], want[k]) for k in want}
+        res['bf16_logit_scale'] = scale
+        if set(got) != {'segmentation', 'depth'} \
+                or got['segmentation'].shape != (B, H, W, 19) \
+                or got['segmentation'].dtype != torch.float32 \
+                or not torch.isfinite(got['segmentation']).all() \
+                or max(res['bf16_vs_direct_max_abs_diff'].values()) \
+                > scale * 2 ** -7:
+            raise AssertionError(f'serving: the artifact and the direct '
+                                 f'forward differ: {res}')
+        del want
+        for what, x in (('device', x8), ('host', x8_host)):
+            ms = latency_ms(lambda: sm.predict(x), reps=10)
+            res[f'batch8_images_per_s_{what}_input'] = \
+                B * len(ms) / sum(ms) * 1e3
+        res['batch1_latency'] = percentiles(
+            latency_ms(lambda: sm.predict(x1_host), reps=30))
+        # the same forward in this process, not exported (eager torch)
+        with torch.inference_mode():
+            ms = latency_ms(lambda: serve(x8), reps=10)
+            res['eager_batch8_images_per_s_device_input'] = \
+                B * len(ms) / sum(ms) * 1e3
+            res['eager_batch1_latency'] = percentiles(
+                latency_ms(lambda: serve(x8[:1]), reps=30))
+        del serve
+        res['batch8_profile'] = profile_step(lambda: sm.predict(x8))
+        for bad in (x8[:1, :H // 2], x8[:1].float()):
+            try:
+                sm.predict(bad)
+            except ValueError:
+                continue
+            raise AssertionError(f'serving: {tuple(bad.shape)} {bad.dtype} '
+                                 'was not refused')
+        del sm, got
+
+        large = torch.randint(0, 256, (1, *SERVING_LARGE, 3), generator=g,
+                              device=dev, dtype=torch.uint8).cpu().numpy()
+        _, sm = artifact('b1_bf16_1024x2048', model, SERVING_LARGE, 1,
+                         'bf16', ('cuda',), None)
+        res['batch1_latency_1024x2048'] = percentiles(
+            latency_ms(lambda: sm.predict(large), reps=20))
+        del sm
+
+        path, sm = artifact('b1_f32_card', model, (H, W), 1, 'fp32',
+                            ('cuda', 'cpu'), None)
+        card = sm.predict(x1_host)
+        t0 = time.perf_counter()
+        cpu = ServingModel.load(path, device='cpu').predict(x1_host)
+        res['f32_cpu_load_and_request_s'] = time.perf_counter() - t0
+        res['f32_card_vs_cpu_max_abs_err'] = {
+            k: max_err(card[k].cpu(), cpu[k]) for k in card}
+        if max(res['f32_card_vs_cpu_max_abs_err'].values()) > 2e-3:
+            raise AssertionError(f'serving: f32 card and CPU differ: {res}')
+        del sm
+
+        _, sm = artifact('b1_f32_cpu_export', copy.deepcopy(model).cpu(),
+                         (H, W), 1, 'fp32', ('cpu', 'cuda'), 'cuda')
+        moved, moved_launches = count_launches(lambda: sm.predict(x1_host))
+        res['cpu_export_on_card_launches'] = moved_launches
+        res['cpu_export_vs_card_export_max_abs_diff'] = {
+            k: max_err(moved[k], card[k]) for k in card}
+        if (moved_launches['sr_attention'], moved_launches['seg_core']) \
+                != (8, 1) or moved_launches['sr_attention.by_design'][
+                    'simt_f32'] != 8 or any(
+                    res['cpu_export_vs_card_export_max_abs_diff'].values()):
+            raise AssertionError(f'serving: the CPU-exported artifact on '
+                                 f'the card: {res}')
+        del sm
+    emit({'phase': 'serving', **res, 'launches': launches})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2411,6 +2649,7 @@ def main() -> int:
     pretrained_launches = phase_pretrained(dev)
     remat_off_launches, remat_on_launches = phase_remat(dev)
     augment_launches = phase_weather_extras(dev)
+    serving_launches = phase_serving(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -2427,7 +2666,8 @@ def main() -> int:
              'cli_evaluate': cli_evaluate_launches,
              'pretrained': pretrained_launches,
              'remat_off': remat_off_launches, 'remat_on': remat_on_launches,
-             'weather_extras': augment_launches}
+             'weather_extras': augment_launches,
+             'serving': serving_launches}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):

@@ -1,0 +1,193 @@
+"""The eval kernels as ``torch.library`` custom ops (``ops/library.py``), on
+the CPU.
+
+* ``torch.library.opcheck`` on ``awseg::sr_attention`` (K1) and
+  ``awseg::seg_core`` (K2) at ragged shapes, f32 and bf16: schema, fake
+  implementation and the traced (dynamic-shape) dispatch all agree with
+  the CPU kernel.
+* Each op has a CPU and a CUDA kernel and nothing else: no default
+  implementation that would run plain code on another device.
+* The exported serving graph of the ensemble holds exactly 8
+  ``awseg.sr_attention`` nodes (one per MiT block) and 1
+  ``awseg.seg_core``, and no softmax of the attention: on the CPU, the
+  guard against a trace that records the plain version, which a moved
+  artifact would then run on the card.
+* ``_device.const`` after an export in the same process serves real
+  tables: ``normalize_imagenet``, an upconv and the seg head's phase passes
+  equal a fresh process's values, and the cache holds no FakeTensor.
+* Without a gradient the wrappers call the ops, and on the CPU that equals
+  the plain versions bit for bit; with one they keep their autograd paths.
+"""
+
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from awsegbench_torch import _device
+from awsegbench_torch.data.pipeline import normalize_imagenet
+from awsegbench_torch.models.ensemble import EnsembleModel
+from awsegbench_torch.ops import attention, headkernels
+from awsegbench_torch.ops.upconv import upsample_conv3x3
+from awsegbench_torch.serving import build_serving_fn
+
+torch.set_num_threads(1)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ROOT = Path(__file__).resolve().parents[1]
+OPS = ('awseg::sr_attention', 'awseg::seg_core')
+
+
+def _rand(shape, dtype, seed):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+def _attention_inputs(g, n, m, d, dtype):
+    return tuple(_rand(s, dtype, i) for i, s in
+                 enumerate(((g, n, d), (g, m, d), (g, m, d))))
+
+
+def _seg_core_inputs(b, h, w, c, nc, dtype):
+    P = _rand((b, h, w, 9, c), dtype, 0)
+    a1 = _rand((c,), torch.float32, 1).abs() + 0.5
+    return (P, a1, _rand((c,), torch.float32, 2),
+            _rand((c, nc), dtype, 3) / c ** 0.5,
+            _rand((nc,), torch.float32, 4))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('g,n,m,d', [(3, 37, 5, 32), (2, 50, 13, 64)])
+def test_opcheck_sr_attention(g, n, m, d, dtype):
+    q, k, v = _attention_inputs(g, n, m, d, dtype)
+    torch.library.opcheck(torch.ops.awseg.sr_attention.default,
+                          (q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,h,w,c,nc,r', [(2, 3, 5, 16, 5, 4),
+                                          (1, 2, 3, 32, 19, 8)])
+def test_opcheck_seg_core(b, h, w, c, nc, r, dtype):
+    torch.library.opcheck(torch.ops.awseg.seg_core.default,
+                          (*_seg_core_inputs(b, h, w, c, nc, dtype), r))
+
+
+@pytest.mark.parametrize('name', OPS)
+def test_ops_have_cpu_and_cuda_kernels_only(name):
+    has = torch._C._dispatch_has_kernel_for_dispatch_key
+    assert has(name, 'CPU') and has(name, 'CUDA')
+    for key in ('CompositeExplicitAutograd', 'CompositeImplicitAutograd',
+                'XPU', 'MPS', 'PrivateUse1'):
+        assert not has(name, key), key
+
+
+@pytest.fixture(scope='module')
+def exported():
+    """The bf16 serving forward of a tiny ensemble at 32×64, exported with
+    a symbolic batch, as ``serving.export_serving`` traces it."""
+    torch.manual_seed(0)
+    serve = build_serving_fn(EnsembleModel(num_classes=5).eval(),
+                             precision='bf16')
+    return torch.export.export(
+        serve, (torch.zeros((2, 32, 64, 3), dtype=torch.uint8),),
+        dynamic_shapes={'images_u8': {0: torch.export.Dim('b', min=1)}},
+        strict=False)
+
+
+def _call_nodes(program):
+    for gm in program.graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            yield from (n for n in gm.graph.nodes
+                        if n.op == 'call_function')
+
+
+def test_exported_graph_holds_the_ops(exported):
+    nodes = list(_call_nodes(exported))
+    counts = Counter(str(n.target) for n in nodes)
+    assert counts['awseg.sr_attention.default'] == 8
+    assert counts['awseg.seg_core.default'] == 1
+    for n in nodes:
+        if 'softmax' in str(n.target):
+            stack = ' '.join(str(v) for v in
+                             n.meta.get('nn_module_stack', {}).values())
+            assert 'EfficientSelfAttention' not in stack
+            assert tuple(n.meta['val'].shape) == (2,)   # ensemble weights
+    # the batch stayed symbolic
+    assert len(exported.range_constraints) == 1
+
+
+_FRESH = '''
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from awsegbench_torch.data.pipeline import normalize_imagenet
+from awsegbench_torch.ops.upconv import upsample_conv3x3
+from awsegbench_torch.ops.headkernels import phase_passes
+x = torch.from_numpy(np.load({path!r}))
+np.savez({out!r}, norm=normalize_imagenet(x[..., :3].to(torch.uint8)).numpy(),
+         up=upsample_conv3x3(x, torch.ones(3, 3, 4, 2), None, 4).numpy(),
+         pp=phase_passes(torch.ones(1, 1, 1, 81, 2), 4, False).numpy())
+'''
+
+
+def test_const_serves_real_tables_after_an_export(exported, tmp_path):
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (1, 4, 6, 4)).astype(np.float32))
+    np.save(tmp_path / 'x.npy', x.numpy())
+    code = _FRESH.format(root=str(ROOT), path=str(tmp_path / 'x.npy'),
+                         out=str(tmp_path / 'fresh.npz'))
+    r = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    fresh = np.load(tmp_path / 'fresh.npz')
+
+    got = {'norm': normalize_imagenet(x[..., :3].to(torch.uint8)),
+           'up': upsample_conv3x3(x, torch.ones(3, 3, 4, 2), None, 4),
+           'pp': headkernels.phase_passes(torch.ones(1, 1, 1, 81, 2), 4,
+                                          False)}
+    for key, t in got.items():
+        assert type(t) is torch.Tensor, key
+        np.testing.assert_array_equal(t.numpy(), fresh[key])
+    assert _device._CONSTS
+    assert all(type(t) is torch.Tensor for t in _device._CONSTS.values())
+
+
+def test_no_grad_branch_is_the_op_and_equals_plain():
+    q, k, v = _attention_inputs(4, 33, 7, 32, torch.float32)
+    with torch.no_grad():
+        torch.testing.assert_close(attention.sr_attention(q, k, v, 0.17),
+                                   attention.sr_attention_plain(q, k, v, 0.17),
+                                   rtol=0, atol=0)
+    core = _seg_core_inputs(2, 2, 3, 16, 5, torch.bfloat16)
+    with torch.inference_mode():
+        torch.testing.assert_close(headkernels.seg_core(*core, 4),
+                                   headkernels.seg_core_plain(*core, 4),
+                                   rtol=0, atol=0)
+    # traced without a gradient, the wrappers record the ops
+    gm = torch.fx.experimental.proxy_tensor.make_fx(
+        lambda q, k, v, *c: (attention.sr_attention(q, k, v, 0.17),
+                             headkernels.seg_core(*c, 4)))(q, k, v, *core)
+    targets = {str(n.target) for n in gm.graph.nodes
+               if n.op == 'call_function'}
+    assert {'awseg.sr_attention.default',
+            'awseg.seg_core.default'} <= targets
+
+
+def test_grad_branch_keeps_autograd():
+    q, k, v = (t.requires_grad_() for t in
+               _attention_inputs(2, 9, 4, 32, torch.float32))
+    attention.sr_attention(q, k, v, 0.2).sum().backward()
+    dq = q.grad.clone()
+    q.grad = None
+    attention.sr_attention_plain(q, k, v, 0.2).sum().backward()
+    torch.testing.assert_close(dq, q.grad, rtol=0, atol=0)
+    P, a1, c1, wp, bp = _seg_core_inputs(1, 2, 2, 16, 3, torch.float32)
+    P.requires_grad_()
+    headkernels.seg_core(P, a1, c1, wp, bp, 4).sum().backward()
+    assert P.grad is not None and P.grad.abs().sum() > 0
