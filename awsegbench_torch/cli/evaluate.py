@@ -11,6 +11,12 @@ request it raises.
 
     python -m awsegbench_torch.cli.evaluate runs/x/checkpoints/latest \
         --config configs/default.yaml --output-dir runs/x/eval
+
+Under ``torchrun --nproc_per_node N`` each process is one rank of the data
+mesh (``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo with ``--device
+cpu``): every rank reads the same batches, the ``Evaluator`` splits them
+(or one image's tiles, with ``evaluation.spatial_tiling``) over the ranks,
+and rank 0 alone writes the report.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from ..eval.evaluator import Evaluator, generate_evaluation_report
 from ..models.factory import create_model
 from ..train.checkpoints import load_checkpoint
 from ..utils.config import Config, get_device_config, setup_logging
-from .train import load_cli_config
+from .train import join_world, leave_world, load_cli_config
 
 logger = logging.getLogger(__name__)
 
@@ -88,15 +94,16 @@ def main(argv=None) -> dict[str, Any]:
         config.set('device', args.device)
 
     setup_logging(config)
-    device = get_device_config(config.get('device', 'auto'))
-
-    model = load_model(args.checkpoint, config, device)
-    test_loader = create_test_dataset_and_loader(config)
-
-    evaluator = Evaluator(model, config, device=device)
-    results = evaluator.run(test_loader, seed=config.get('seed', 42))
-
-    generate_evaluation_report(results, Path(args.output_dir))
+    device = join_world(get_device_config(config.get('device', 'auto')))
+    try:
+        model = load_model(args.checkpoint, config, device)
+        test_loader = create_test_dataset_and_loader(config)
+        evaluator = Evaluator(model, config, device=device)
+        results = evaluator.run(test_loader, seed=config.get('seed', 42))
+        if evaluator.mesh.rank == 0:
+            generate_evaluation_report(results, Path(args.output_dir))
+    finally:
+        leave_world()
     logger.info("Evaluation complete. Results:")
     for k, v in results.items():
         if not k.startswith('_'):

@@ -9,6 +9,14 @@ no card and no such request it raises.
 
     python -m awsegbench_torch.cli.train --config configs/default.yaml \
         --output-dir runs/x
+
+Under ``torchrun --nproc_per_node N`` each process is one rank of the data
+mesh: rank r takes ``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo
+with ``--device cpu``; the train loader gives each rank its rows of every
+global batch, and rank 0 alone writes the checkpoints and results.
+
+    torchrun --nproc_per_node 2 -m awsegbench_torch.cli.train \
+        --config configs/default.yaml --output-dir runs/x --device cpu
 """
 
 from __future__ import annotations
@@ -16,12 +24,15 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import random
 import sys
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
+from ..core.mesh import init_distributed
 from ..data.dataset import CityscapesKITTIDataset
 from ..data.pipeline import BatchIterator
 from ..models.factory import count_parameters, create_model
@@ -53,8 +64,29 @@ def load_cli_config(path: str) -> Config:
     return create_default_config()
 
 
+def join_world(device: str) -> str:
+    """Under torchrun (``WORLD_SIZE`` above 1) joins the process group,
+    over gloo on the CPU and NCCL on cards, and returns this rank's device
+    (``cuda:LOCAL_RANK``); else ``device``."""
+    if not init_distributed(backend='gloo' if device == 'cpu' else None):
+        return device
+    if device == 'cpu':
+        return device
+    return f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank()))}"
+
+
+def leave_world() -> None:
+    """Leaves the process group, if one is up."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def create_datasets_and_loaders(config: Config):
-    """The train and val datasets and their loaders."""
+    """The train and val datasets and their loaders. With a process group
+    of more than one rank up, the train loader gives each rank its rows of
+    every global batch (when the batch divides over the ranks); the val
+    loader gives every rank the global batch, which the trainer pads and
+    splits."""
     data_cfg = config.get('data', {}) or {}
     common = dict(
         data_root=data_cfg.get('data_root', 'data'),
@@ -71,9 +103,12 @@ def create_datasets_and_loaders(config: Config):
 
     batch_size = config.get('training.batch_size', 2)
     num_workers = config.get('training.num_workers', 4)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    process = (dict(process_index=dist.get_rank(), process_count=world)
+               if world > 1 and batch_size % world == 0 else {})
     train_loader = BatchIterator(train_ds, batch_size=batch_size, shuffle=True,
                                  seed=config.get('seed', 42),
-                                 num_threads=num_workers)
+                                 num_threads=num_workers, **process)
     val_loader = BatchIterator(val_ds, batch_size=batch_size, shuffle=False,
                                num_threads=num_workers)
     return train_loader, val_loader
@@ -117,8 +152,18 @@ def main(argv=None) -> AdverseWeatherTrainer | None:
 
     seed = config.get('seed', 42)
     set_seed(seed)
-    device = get_device_config(config.get('device', 'auto'))
+    device = join_world(get_device_config(config.get('device', 'auto')))
     logger.info(f"Using device: {device}")
+    try:
+        return _train(args, config, device, output_dir, checkpoint_dir,
+                      log_dir)
+    finally:
+        leave_world()
+
+
+def _train(args, config: Config, device: str, output_dir: Path,
+           checkpoint_dir: Path, log_dir: Path
+           ) -> AdverseWeatherTrainer | None:
 
     try:
         model = create_model(config, device=device)
@@ -166,6 +211,8 @@ def main(argv=None) -> AdverseWeatherTrainer | None:
     logger.info(f"Best validation loss: {results['best_val_loss']:.4f}")
     logger.info(f"Total epochs: {results['total_epochs']}")
 
+    if not trainer.is_main:
+        return trainer
     results_dir = output_dir / config.get('paths.results', 'results')
     results_dir.mkdir(parents=True, exist_ok=True)
     with open(results_dir / 'training_results.json', 'w') as f:

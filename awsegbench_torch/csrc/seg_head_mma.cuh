@@ -91,9 +91,11 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
-// seed ^ mix32(b · M1): image b's stream of the counter hash.
+// seed[0] ^ mix32((b0 + b) · M1): image b's stream of the counter hash,
+// where b0 = seed[1] is the global index of the batch's first row (0 on
+// one device; rank · local batch on a data-parallel rank).
 __device__ __forceinline__ uint32_t image_seed(const int* seed, int b) {
-  return (uint32_t)seed[0] ^ mix32((uint32_t)b * 0x7FEB352Du);
+  return (uint32_t)seed[0] ^ mix32((uint32_t)(seed[1] + b) * 0x7FEB352Du);
 }
 
 struct Params {

@@ -21,6 +21,7 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import const
 from ..weather.corruption import apply_corruption, draw_corruption
@@ -49,8 +50,9 @@ class BatchIterator:
     label: int32 [B, H, W], weather_id: int32 [B], sample_id: int32 [B]}``
     plus the per-sample weather names. The shuffle of epoch ``e`` is seeded
     with ``seed + e``. ``process_index``/``process_count`` slice each global
-    batch for one of several loading processes, as the JAX package does;
-    nothing in the port runs more than one yet (ROADMAP.md §1 item 7).
+    batch for one of several loading processes, as the JAX package does:
+    every process builds the same shuffle and keeps its contiguous rows
+    (``batch_size`` stays the global batch's size).
     """
 
     def __init__(self, dataset, batch_size: int = 8, shuffle: bool = True,
@@ -196,7 +198,15 @@ def create_dataloader(dataset, batch_size: int = 8, shuffle: bool = True,
     """Loader factory of the reference's signature: ``num_workers`` decode
     threads, ``drop_last`` defaulting to ``shuffle``. ``pin_memory`` is
     accepted and has no effect here: :func:`prefetch_to_device` pins what
-    goes to a card."""
+    goes to a card. With a process group of more than one rank up, each
+    process loads its rows of every global batch (``process_index`` and
+    ``process_count`` from the group's rank and size) unless
+    ``process_count`` is given, as the JAX factory reads
+    ``jax.process_*``."""
+    if 'process_count' not in kwargs and dist.is_available() \
+            and dist.is_initialized() and dist.get_world_size() > 1:
+        kwargs['process_index'] = dist.get_rank()
+        kwargs['process_count'] = dist.get_world_size()
     return BatchIterator(dataset, batch_size=batch_size, shuffle=shuffle,
                          num_threads=num_workers,
                          drop_last=kwargs.pop('drop_last', None),

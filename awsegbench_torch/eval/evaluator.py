@@ -23,10 +23,23 @@ The corruption's draws come from a ``torch.Generator`` on the device,
 seeded from ``seed``: the JAX package's per-sample ``jax.random`` streams
 cannot be reproduced in torch. A caller (a test) can give each batch's
 draws instead.
+
+Across devices (``core/mesh.py``: one process per device) every rank
+reads the same global batches and draws the same corruption. Each batch
+is padded to a multiple of the mesh's size by repeating its last row, and
+each rank takes its rows; the padded rows leave every metric through a
+sample mask. The accumulators are summed over the ranks once, at the
+sweep's end (``psum_tree``; the int64 counts stay exact), and ``'exact'``
+mode's AUROC is :func:`~awsegbench_torch.metrics.disagreement.
+auroc_exact_sharded` of every rank's buffer. With spatial tiling
+(``evaluation.spatial_tiling``) one image's tiles are spread over the
+ranks instead (``parallel.collectives.tiled_forward``); each rank then
+accumulates its rows of the stitched outputs.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import time
@@ -39,16 +52,19 @@ from torch import nn
 
 from .._device import resolve_device
 from ..core.precision import get_policy
+from ..core.mesh import DataMesh, create_mesh, mesh_rows
 from ..data.pipeline import prepare_batch
 from ..metrics.calibration import ece_bin_update_per_weather, ece_from_bins
-from ..metrics.disagreement import (auroc_exact, auroc_from_histogram,
+from ..metrics.disagreement import (auroc_exact_sharded,
+                                    auroc_from_histogram,
                                     auroc_histogram_update,
                                     disagreement_and_mean_probs)
 from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
                            iou_from_confusion)
 from ..metrics.robustness import ADVERSE_WEATHERS, RobustnessMetrics
+from ..parallel.collectives import choose_tile_grid, psum_tree, tiled_forward
 from ..utils.config import check_tpu_section
-from ..weather.corruption import WEATHER_CONDITIONS
+from ..weather.corruption import WEATHER_CONDITIONS, draw_corruption
 
 logger = logging.getLogger(__name__)
 
@@ -60,7 +76,7 @@ AUROC_MODES = ('histogram', 'exact', 'exact_host')
 
 
 class Evaluator:
-    """The sweep on one device: ``Evaluator(model, config).run(loader)``.
+    """The sweep: ``Evaluator(model, config).run(loader)``.
 
     ``config`` is the repository's config (a mapping or a
     ``utils.config.Config``; its ``tpu`` section is checked by
@@ -68,16 +84,21 @@ class Evaluator:
     ``evaluation.auroc_mode`` (``'histogram'``, ``'exact'``,
     ``'exact_host'``; ``collect_exact_auroc`` asks for ``'exact_host'``),
     ``evaluation.exact_auroc_max_bytes`` (above it ``'exact'`` falls back to
-    the histogram, with a warning), ``evaluation.spatial_tiling`` and
-    ``tpu.precision`` (``'bf16'`` or ``'fp32'``: the model's weights are
-    cast once to its compute dtype; the metrics stay f32). The model runs
-    on ``device`` ('cuda' unless the caller asks for 'cpu'; raises when
-    there is no card)."""
+    the histogram, with a warning), ``evaluation.spatial_tiling``
+    (``'on'``, ``'off'``, or ``'auto'``: tile images of at least 2048×1024
+    pixels when the mesh has more than one rank), ``evaluation.tile_size``
+    (``'auto'``: ``choose_tile_grid`` over the mesh's size, or [h, w]),
+    ``evaluation.tile_halo`` (default 128), ``tpu.mesh_shape`` (the mesh,
+    unless ``mesh`` is given) and ``tpu.precision`` (``'bf16'`` or
+    ``'fp32'``: the model's weights are cast once to its compute dtype; the
+    metrics stay f32). The model runs on ``device`` ('cuda' unless the
+    caller asks for 'cpu'; raises when there is no card)."""
 
     def __init__(self, model: nn.Module, config: Mapping | None = None,
                  num_bins: int = 15, collect_exact_auroc: bool = False,
                  auroc_mode: str | None = None,
-                 device: str | torch.device = 'cuda') -> None:
+                 device: str | torch.device = 'cuda',
+                 mesh: DataMesh | None = None) -> None:
         cfg = (config.to_dict() if hasattr(config, 'to_dict')
                else dict(config or {}))
         check_tpu_section(cfg)
@@ -92,19 +113,34 @@ class Evaluator:
             raise ValueError(f'Unknown auroc_mode: {auroc_mode!r}')
         self.auroc_mode = auroc_mode
         self.collect_exact_auroc = auroc_mode == 'exact_host'
-        # One card: 'auto' never tiles (the JAX package tiles only over
-        # more than one device); 'on' needs the multi-device port.
+        tpu_cfg = cfg.get('tpu') or {}
+        self.mesh = mesh if mesh is not None else create_mesh(
+            mesh_shape=tpu_cfg.get('mesh_shape', 'auto'))
         self.spatial_tiling = eval_cfg.get('spatial_tiling', 'auto')
-        if self.spatial_tiling == 'on':
-            raise NotImplementedError(
-                "evaluation.spatial_tiling='on' needs the multi-device port "
-                '(ROADMAP.md §1, item 7)')
+        if self.spatial_tiling not in ('on', 'off', 'auto'):
+            raise ValueError('evaluation.spatial_tiling must be on, off or '
+                             f'auto, not {self.spatial_tiling!r}')
+        self.tile_size = eval_cfg.get('tile_size', 'auto')
+        self.tile_halo = int(eval_cfg.get('tile_halo', 128))
         self.device = resolve_device(device)
-        self.policy = get_policy((cfg.get('tpu') or {}).get('precision',
-                                                            'bf16'))
+        self.policy = get_policy(tpu_cfg.get('precision', 'bf16'))
         self.dtype = self.policy.compute_dtype
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.last_acc: dict[str, torch.Tensor] | None = None
+
+    def use_tiling(self, height: int, width: int) -> bool:
+        """Whether an image of ``height`` × ``width`` is tiled."""
+        if self.spatial_tiling == 'on':
+            return True
+        if self.spatial_tiling == 'auto':
+            return height * width >= 2048 * 1024 and self.mesh.size > 1
+        return False
+
+    def tiles(self, height: int, width: int) -> tuple[int, int]:
+        """The tile size for an image of ``height`` × ``width``."""
+        if self.tile_size == 'auto':
+            return choose_tile_grid(height, width, self.mesh.size)
+        return tuple(self.tile_size)
 
     def init_acc(self, capacity: int = 0) -> dict[str, Any]:
         """Zeroed accumulators on the device; ``capacity`` pixels of score
@@ -132,26 +168,49 @@ class Evaluator:
                 draws: Mapping[str, torch.Tensor] | None = None
                 ) -> dict[str, torch.Tensor]:
         """Corrupt (draws from ``generator`` or given), normalise and run
-        the model in the compute dtype; returns its outputs."""
+        the model in the compute dtype; returns its outputs. An image that
+        :meth:`use_tiling` picks runs through ``tiled_forward``, its tiles
+        spread over the mesh's ranks (each rank returns every image's
+        stitched outputs); a model whose forward takes ``tile_info`` runs
+        the tiles exactly (the halo resynced, SR attention and ASPP on the
+        full map)."""
         prep = prepare_batch(images, labels, weather_ids, generator=generator,
                              draws=draws, train=False, include_depth=False)
-        return self.model(prep['image'].to(self.dtype))
+        x = prep['image'].to(self.dtype)
+        h, w = x.shape[1], x.shape[2]
+        if not self.use_tiling(h, w):
+            return self.model(x)
+        th, tw = self.tiles(h, w)
+        exact = 'tile_info' in inspect.signature(
+            type(self.model).forward).parameters
+
+        def apply(_, tiles, *info):
+            return (self.model(tiles, tile_info=info[0]) if exact
+                    else self.model(tiles))
+        outs = [tiled_forward(apply, None, img, th, tw, self.tile_halo,
+                              mesh=self.mesh, with_tile_info=exact)
+                for img in x]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     @torch.inference_mode()
     def accumulate(self, acc: dict[str, Any],
                    outputs: Mapping[str, torch.Tensor], labels: torch.Tensor,
-                   weather_ids: torch.Tensor) -> None:
+                   weather_ids: torch.Tensor,
+                   sample_mask: torch.Tensor | None = None) -> None:
         """Adds one batch's metrics into ``acc``: the per-weather confusion
         matrices from the model-dtype logits, the per-weather ECE bins from
         their f32 softmax and, for an ensemble, the disagreement of its two
         members against the errors of their mean softmax's argmax (not the
-        ensemble's ``segmentation``) over the non-ignored pixels."""
+        ensemble's ``segmentation``) over the non-ignored pixels.
+        ``sample_mask`` ([B] 0/1) leaves rows out (padded ones)."""
         nw = len(WEATHER_CONDITIONS)
         seg = outputs['segmentation']
         acc['cm'] += confusion_matrix_per_weather_from_logits(
-            seg, labels, self.num_classes, weather_ids, nw)
+            seg, labels, self.num_classes, weather_ids, nw,
+            sample_mask=sample_mask)
         acc['ece'] += ece_bin_update_per_weather(
-            seg, labels, weather_ids, nw, self.num_bins, class_axis=-1)
+            seg, labels, weather_ids, nw, self.num_bins,
+            sample_mask=sample_mask, class_axis=-1)
         if 'segformer_seg' not in outputs:
             return
         dis, mean_probs = disagreement_and_mean_probs(
@@ -159,7 +218,11 @@ class Evaluator:
             class_axis=-1)
         dis = dis.reshape(-1)
         errors = (mean_probs.argmax(dim=-1) != labels).reshape(-1)
-        valid = (labels != 255).reshape(-1)
+        valid = labels != 255
+        if sample_mask is not None:
+            valid &= sample_mask.bool().reshape((-1,) + (1,) * (
+                labels.ndim - 1))
+        valid = valid.reshape(-1)
         acc['auroc_hist'] += auroc_histogram_update(
             dis, errors, AUROC_BINS, *AUROC_RANGE, weights=valid,
             log_scale=True)
@@ -174,9 +237,10 @@ class Evaluator:
                 valid, errors.to(torch.int8), -1)
             acc['offset'] = off + n
 
-    def _exact_capacity(self, test_loader, batch_shape) -> int:
-        """The score buffer's pixels for ``'exact'`` mode; falls back to the
-        histogram (warning) when it would pass
+    def _exact_capacity(self, test_loader, rows_shape) -> int:
+        """The score buffer's pixels for ``'exact'`` mode (``rows_shape``:
+        the rows this rank keeps of a batch, with their height and width);
+        falls back to the histogram (warning) when it would pass
         ``evaluation.exact_auroc_max_bytes`` (default 4 GiB)."""
         try:
             n_batches = len(test_loader)
@@ -184,7 +248,7 @@ class Evaluator:
             raise ValueError("auroc_mode='exact' needs a sized loader; use "
                              "'exact_host' or 'histogram' for unsized "
                              'streams') from None
-        capacity = n_batches * int(np.prod(batch_shape))
+        capacity = n_batches * int(np.prod(rows_shape))
         budget = int((self.config.get('evaluation') or {}).get(
             'exact_auroc_max_bytes', 4 << 30))
         if capacity * 5 > budget:
@@ -197,15 +261,34 @@ class Evaluator:
             return 0
         return capacity
 
+    def _rows(self, images, labels, wids, draws, generator):
+        """The batch and its draws padded to a multiple of the mesh's size
+        by repeating the last row (the draws are the real rows', drawn now
+        when not given, so the generator advances as on one device), with
+        the sample mask: ones, then zeros on the padded rows."""
+        b, h, w = images.shape[:3]
+        if draws is None:
+            draws = draw_corruption(wids, h, w, generator)
+        pad = (-b) % self.mesh.size
+
+        def edge(t):
+            return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad \
+                else t
+        mask = torch.ones(b + pad, device=self.device)
+        mask[b:] = 0.0
+        return (edge(images), edge(labels), edge(wids),
+                {k: edge(v) for k, v in draws.items()}, mask)
+
     def run(self, test_loader: Iterable[Mapping[str, Any]], seed: int = 42,
             draws: Sequence[Mapping[str, torch.Tensor]] | None = None
             ) -> dict[str, Any]:
         """The sweep over ``test_loader``'s batches (dicts with ``image``
         [B, H, W, 3] uint8, ``label`` [B, H, W], ``weather_id`` [B] and
         ``sample_id`` [B], as numpy arrays or tensors; ``sample_id`` keys
-        the JAX package's draws and is not read here). The corruption draws
-        come from a generator seeded with ``seed``, or from ``draws``, one
-        mapping per batch. Returns the JAX package's result schema."""
+        the JAX package's draws and is not read here). Across devices every
+        rank reads the same global batches. The corruption draws come from
+        a generator seeded with ``seed``, or from ``draws``, one mapping
+        per batch. Returns the JAX package's result schema."""
         dev = self.device
         generator = torch.Generator(device=dev).manual_seed(seed)
         acc = None
@@ -216,15 +299,26 @@ class Evaluator:
             labels = torch.as_tensor(batch['label']).to(dev)
             wids = torch.as_tensor(batch['weather_id']).to(dev)
             n_images += images.shape[0]
+            d = None if draws is None else {k: v.to(dev)
+                                            for k, v in draws[i].items()}
+            images, labels, wids, d, mask = self._rows(images, labels, wids,
+                                                       d, generator)
+            rows = mesh_rows(self.mesh, images.shape[0])
+            if self.use_tiling(*images.shape[1:3]):
+                out = self.forward(images, labels, wids, draws=d)
+                out = {k: v[rows] for k, v in out.items()}
+            else:
+                out = self.forward(images[rows], labels[rows], wids[rows],
+                                   draws={k: v[rows] for k, v in d.items()})
+            images, labels, wids, mask = (t[rows] for t in (images, labels,
+                                                            wids, mask))
             if acc is None:
                 capacity = (self._exact_capacity(test_loader,
                                                  images.shape[:3])
                             if self.auroc_mode == 'exact' else 0)
                 acc = self.init_acc(capacity)
-            d = None if draws is None else {k: v.to(dev)
-                                            for k, v in draws[i].items()}
-            out = self.forward(images, labels, wids, generator, d)
-            self.accumulate(acc, out, labels, wids)
+            self.accumulate(acc, out, labels, wids,
+                            mask if self.mesh.size > 1 else None)
         if acc is None:
             acc = self.init_acc()
         exact_auroc = None
@@ -232,16 +326,19 @@ class Evaluator:
             n = acc['offset']
             errors = acc['errors'][:n]
             valid = errors >= 0
-            exact_auroc = float(auroc_exact(acc['scores'][:n],
-                                            errors.float() * valid, valid))
+            exact_auroc = float(auroc_exact_sharded(
+                acc['scores'][:n], errors.float() * valid, valid.float(),
+                self.mesh))
         elif self.auroc_mode == 'exact_host' and acc['host_scores']:
             s = torch.cat(acc['host_scores'])
             e = torch.cat(acc['host_errors'])
             keep = e >= 0
-            exact_auroc = float(auroc_exact(s[keep], e[keep]))
-        cms = acc['cm'].cpu()
-        ece = acc['ece'].cpu()
-        hist = acc['auroc_hist'].cpu()
+            exact_auroc = float(auroc_exact_sharded(s[keep], e[keep], None,
+                                                    self.mesh))
+        totals = psum_tree({k: acc[k] for k in ('cm', 'ece', 'auroc_hist')},
+                           self.mesh)
+        cms, ece, hist = (totals[k].cpu() for k in ('cm', 'ece',
+                                                    'auroc_hist'))
         elapsed = time.time() - t0
         self.last_acc = {'cm': cms, 'ece': ece, 'auroc_hist': hist}
         return _results(cms, ece, hist, exact_auroc, self.num_classes) | {

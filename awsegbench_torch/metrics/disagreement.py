@@ -21,6 +21,8 @@ from typing import Sequence
 
 import torch
 
+from ..core.mesh import DataMesh
+from ..parallel.collectives import all_gather_varlen
 from .iou import count_bins
 
 
@@ -102,6 +104,25 @@ def auroc_exact(scores: torch.Tensor, labels: torch.Tensor,
         - n_pos * (n_pos + 1.0) / 2.0
     auroc = u / (n_pos * n_neg).clamp(min=1.0)
     return torch.where((n_pos > 0) & (n_neg > 0), auroc, 0.5)
+
+
+def auroc_exact_sharded(scores: torch.Tensor, labels: torch.Tensor,
+                        weights: torch.Tensor | None,
+                        mesh: DataMesh | None) -> torch.Tensor:
+    """Exact AUROC over every rank's buffer: :func:`auroc_exact` of the
+    ranks' ``scores``, ``labels`` and ``weights`` (a 0/1 mask) concatenated
+    in rank order, the same value on every rank. Torch has no distributed
+    sort, so each rank gathers every buffer (the scores in f32, a label or
+    −1 for a dropped entry in int8: 5 bytes a pixel) and sorts the whole;
+    the JAX package sorts a sharded buffer in place."""
+    if mesh is None or mesh.size <= 1:
+        return auroc_exact(scores, labels, weights)
+    keep = (torch.ones_like(labels, dtype=torch.bool) if weights is None
+            else weights.reshape(labels.shape) > 0)
+    code = torch.where(keep, labels.to(torch.int8), -1).reshape(-1)
+    scores = all_gather_varlen(scores.float().reshape(-1), mesh)
+    code = all_gather_varlen(code, mesh)
+    return auroc_exact(scores, code.clamp(min=0), code >= 0)
 
 
 def auroc_histogram_update(scores: torch.Tensor, labels: torch.Tensor,

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import upsample_like
+from ..parallel.collectives import first_row, global_rows
 from .heads import (BatchNorm, ConvBNReLU, DepthEstimationHead, conv,
                     nchw_to_nhwc, nhwc_to_nchw)
 
@@ -76,7 +77,12 @@ class ResNetEncoder(nn.Module):
                 blk += 1
             self.stages.append(n_blocks)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, tile_info=None
+                ) -> list[torch.Tensor]:
+        """Under spatial tiling (``tile_info``) each stage's output gets
+        its halo refilled: ResNet-50's largest receptive radius within a
+        stage (layer3, layer4: about 96 input pixels) stays inside a
+        128-pixel halo."""
         feats = [x]
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
         feats.append(y)
@@ -86,6 +92,8 @@ class ResNetEncoder(nn.Module):
             for _ in range(n_blocks):
                 y = getattr(self, f'Bottleneck_{blk}')(y)
                 blk += 1
+            if tile_info is not None:
+                y = nhwc_to_nchw(tile_info.resync(nchw_to_nhwc(y)))
             feats.append(y)
         return feats
 
@@ -122,27 +130,39 @@ class ASPP(nn.Module):
                                        features, 1)               # project
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                tile_info=None) -> torch.Tensor:
         """x NCHW. In train mode the dropout keeps where ``mask`` (bool,
         NHWC like the JAX package's) is true, or where a uniform draw from
-        ``generator`` is below the keep rate (Flax's Bernoulli(keep))."""
+        ``generator`` is below the keep rate (Flax's Bernoulli(keep)); a
+        data-parallel rank draws the global batch's uniforms and keeps its
+        rows. Under spatial tiling (``tile_info``) the whole pyramid runs
+        on the assembled full-image map (its atrous reach, about 576 input
+        pixels, passes any halo, and the pooling is global) and the tiles
+        are cut out of its output."""
+        if tile_info is not None:
+            x = nhwc_to_nchw(tile_info.assemble_full(nchw_to_nhwc(x)))
         branches = [self.ConvBNReLU_0(x)]
         branches += [getattr(self, f'SeparableConvBNReLU_{i}')(x)
                      for i in range(self.n_rates)]
         pooled = self.ConvBNReLU_1(x.mean(dim=(2, 3), keepdim=True))
         branches.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         y = self.ConvBNReLU_2(torch.cat(branches, dim=1))
-        if not self.training:
-            return y
-        keep = 1.0 - self.dropout
-        if mask is None:
-            if generator is None:
-                raise ValueError('ASPP: train mode needs a dropout mask or '
-                                 'a generator')
-            b, c, h, w = y.shape
-            mask = torch.rand((b, h, w, c), generator=generator,
-                              device=y.device) < keep
-        return torch.where(nhwc_to_nchw(mask), y / keep, 0.0)
+        if self.training:
+            keep = 1.0 - self.dropout
+            if mask is None:
+                if generator is None:
+                    raise ValueError('ASPP: train mode needs a dropout mask '
+                                     'or a generator')
+                b, c, h, w = y.shape
+                first = first_row(b)
+                mask = torch.rand((global_rows(b), h, w, c),
+                                  generator=generator,
+                                  device=y.device)[first:first + b] < keep
+            y = torch.where(nhwc_to_nchw(mask), y / keep, 0.0)
+        if tile_info is not None:
+            y = nhwc_to_nchw(tile_info.extract_tiles(nchw_to_nhwc(y)))
+        return y
 
 
 class DeepLabV3PlusModel(nn.Module):
@@ -169,15 +189,19 @@ class DeepLabV3PlusModel(nn.Module):
 
     def forward(self, x: torch.Tensor, aspp_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                depth_seed: torch.Tensor | None = None
+                depth_seed: torch.Tensor | None = None, tile_info=None
                 ) -> dict[str, torch.Tensor]:
         """x NHWC. In train mode ASPP's dropout takes ``aspp_mask`` [B, h,
         w, 256] (bool) or draws from ``generator``, and the depth head's
-        takes the hash mask of ``depth_seed`` (an int32 tensor)."""
+        takes the hash mask of ``depth_seed`` (an int32 tensor). Under
+        spatial tiling (``tile_info``) x holds tiles of one image: the
+        encoder resyncs each stage, ASPP runs whole, the decoder and the
+        depth head stay tile-local."""
         h, w = x.shape[1], x.shape[2]
-        feats = self.ResNetEncoder_0(nhwc_to_nchw(x))
+        feats = self.ResNetEncoder_0(nhwc_to_nchw(x), tile_info)
         high, low = feats[-1], feats[2]          # os16 2048 ch, os4 256 ch
-        y = self.SeparableConvBNReLU_0(self.ASPP_0(high, aspp_mask, generator))
+        y = self.SeparableConvBNReLU_0(self.ASPP_0(high, aspp_mask, generator,
+                                                   tile_info))
         y = nhwc_to_nchw(upsample_like(nchw_to_nhwc(y), low.shape[2:]))
         y = torch.cat([y, self.ConvBNReLU_0(low)], dim=1)
         y = self.Conv_0(self.SeparableConvBNReLU_1(y))

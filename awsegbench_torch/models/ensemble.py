@@ -46,18 +46,20 @@ class EnsembleModel(nn.Module):
                 aspp_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
                 segformer_depth_seed: torch.Tensor | None = None,
-                deeplab_depth_seed: torch.Tensor | None = None
-                ) -> dict[str, torch.Tensor]:
+                deeplab_depth_seed: torch.Tensor | None = None,
+                tile_info=None) -> dict[str, torch.Tensor]:
         """x [B, H, W, 3] normalized → NHWC outputs: 'segmentation',
         'segformer_seg', 'deeplabv3plus_seg' and, with depth, 'depth',
         'segformer_depth', 'deeplabv3plus_depth'. Train mode needs the seg
         head's dropout ``seed`` (int32 tensor), ASPP's ``aspp_mask`` or a
         ``generator`` to draw it and, with depth, one int32 seed per depth
         head (each head draws its own mask, as each Flax module draws its
-        own dropout key)."""
-        seg_out = self.segformer(x, seed, segformer_depth_seed)
+        own dropout key). With ``tile_info`` (``parallel.collectives.
+        TileInfo``) x holds spatial tiles of one image and both members run
+        them exactly."""
+        seg_out = self.segformer(x, seed, segformer_depth_seed, tile_info)
         dlv_out = self.deeplabv3plus(x, aspp_mask, generator,
-                                     deeplab_depth_seed)
+                                     deeplab_depth_seed, tile_info)
         s1, s2 = seg_out['segmentation'], dlv_out['segmentation']
 
         if self.ensemble_strategy == 'weighted_average':

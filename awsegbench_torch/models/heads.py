@@ -23,6 +23,10 @@ Parity notes:
   ``ConvBNReLU`` (``heads.py:176-186`` in the JAX package pads that way on
   purpose: Flax ``'SAME'`` at stride 2 pads (0, 1) on even inputs). Stride-1
   ``'SAME'`` convs are the same symmetric padding.
+* Under a data-parallel mesh (``parallel.collectives.data_parallel``),
+  BN's train-mode statistics and the fused heads' batch sums are the
+  global batch's, summed over the ranks (padded rows count, as in the JAX
+  step), and the dropout hashes each row by its global index.
 * The heads' dropout (rate 0.1) is the counter-hash mask of
   ``ops/headkernels_train.py`` on every path, drawn from an int32 seed per
   head; the JAX package's unfused paths use Flax ``nn.Dropout`` there.
@@ -38,6 +42,8 @@ from ..ops.depthkernels_train import depth_stage1_fused_train
 from ..ops.headkernels import seg_head_fused
 from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
 from ..ops.upconv import upsample_conv3x3
+from ..parallel.collectives import (active_mesh, first_row, global_rows,
+                                    sync_sum)
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -74,8 +80,15 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if active_mesh() is None:
+                mean = xf.mean(dims)
+                sq = (xf * xf).mean(dims)
+            else:   # the global batch's statistics, over every rank's rows
+                n = global_rows(xf.shape[0]) * (xf.numel() // xf.shape[0]
+                                                // xf.shape[1])
+                mean = sync_sum(xf.sum(dims)) / n
+                sq = sync_sum((xf * xf).sum(dims)) / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.set_stats(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
@@ -94,6 +107,18 @@ class BatchNorm(nn.Module):
         m_c = torch.tensor(m, dtype=cdt, device=self.weight.device)
         for buf, new in ((self.running_mean, mean), (self.running_var, var)):
             buf.copy_(buf.to(cdt) * m_c + (1.0 - m) * new.detach())
+
+
+def rank_seed(seed: torch.Tensor | None, b: int) -> torch.Tensor | None:
+    """A dropout seed for this rank's ``b`` rows: under a data-parallel
+    mesh, (seed, global index of the first row), so that each row's mask
+    is the one it has in the global batch (``ops.headkernels_train.
+    image_seed``); else ``seed``."""
+    if seed is None or active_mesh() is None:
+        return seed
+    return torch.stack([seed.reshape(()).to(torch.int32),
+                        torch.tensor(first_row(b), dtype=torch.int32,
+                                     device=seed.device)])
 
 
 def hash_dropout(x: torch.Tensor, seed: torch.Tensor,
@@ -157,6 +182,7 @@ class DepthEstimationHead(nn.Module):
         if self.training and seed is None:
             raise ValueError('DepthEstimationHead: train mode needs the '
                              'dropout seed')
+        seed = rank_seed(seed, features.shape[0])
         if (self.training and upsample_scale is not None
                 and upsample_scale >= 4 and min(features.shape[1:3]) >= 2):
             h2, mean, var = depth_stage1_fused_train(
@@ -213,6 +239,7 @@ class SegmentationHead(nn.Module):
         if seed is None:
             raise ValueError('SegmentationHead: train mode needs the dropout '
                              'seed')
+        seed = rank_seed(seed, features.shape[0])
         if upsample_scale is not None and min(features.shape[1:3]) >= 2:
             y, mean, var = seg_head_fused_train(
                 features, hwio(self.Conv_0), self.Conv_0.bias, bn.weight,

@@ -122,20 +122,31 @@ class EfficientSelfAttention(nn.Module):
         self.Dense_2 = nn.Linear(dim, dim)              # v
         self.Dense_3 = nn.Linear(dim, dim)              # out proj
 
-    def forward(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: tuple[int, int],
+                tile_info=None) -> torch.Tensor:
+        """x [B, h·w, C] tokens. Under spatial tiling (``tile_info``,
+        ``parallel.collectives.TileInfo``) the K/V come from the assembled
+        full-image map and are shared by every tile, so each tile attends
+        over the monolithic forward's tokens."""
         b, n, c = x.shape
         h, w = hw
         heads = self.num_heads
         hd = c // heads
         q = self.Dense_0(x)
-        kv = x
+        kv, kv_b, fh, fw = x, b, h, w
+        if tile_info is not None:
+            full = tile_info.assemble_full(x.reshape(b, h, w, c))
+            kv_b, fh, fw = 1, full.shape[1], full.shape[2]
+            kv = full.reshape(1, fh * fw, c)
         if self.sr_ratio > 1:
             s = self.sr_ratio
-            xs = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
-            py, px = _same_pad(h, s, s), _same_pad(w, s, s)
+            xs = kv.reshape(kv_b, fh, fw, c).permute(0, 3, 1, 2)
+            py, px = _same_pad(fh, s, s), _same_pad(fw, s, s)
             xs = F.pad(xs, (px[0], px[1], py[0], py[1]))
             kv = self.LayerNorm_0(self.Conv_0(xs).flatten(2).transpose(1, 2))
         k, v = self.Dense_1(kv), self.Dense_2(kv)
+        if tile_info is not None:
+            k, v = k.expand(b, -1, -1), v.expand(b, -1, -1)
         m = k.shape[1]
 
         def groups(t, length):  # [b, L, c] → [b·heads, L, hd]
@@ -177,20 +188,24 @@ class SegFormerBlock(nn.Module):
         self.LayerNorm_1 = layer_norm(dim)
         self.MixFFN_0 = MixFFN(dim, mlp_ratio)
 
-    def forward(self, x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-        x = x + self.EfficientSelfAttention_0(self.LayerNorm_0(x), hw)
+    def forward(self, x: torch.Tensor, hw: tuple[int, int],
+                tile_info=None) -> torch.Tensor:
+        x = x + self.EfficientSelfAttention_0(self.LayerNorm_0(x), hw,
+                                              tile_info)
         return x + self.MixFFN_0(self.LayerNorm_1(x), hw)
 
 
 def _checkpointed_block(block: SegFormerBlock, tokens: torch.Tensor,
-                        hw: tuple[int, int]) -> torch.Tensor:
-    """``block(tokens, hw)`` under a non-reentrant checkpoint, with the
-    block's current parameters as the checkpoint's inputs. The block draws
-    no random numbers, so no RNG state is saved for the recompute."""
+                        hw: tuple[int, int], tile_info=None) -> torch.Tensor:
+    """``block(tokens, hw, tile_info)`` under a non-reentrant checkpoint,
+    with the block's current parameters as the checkpoint's inputs. The
+    block draws no random numbers, so no RNG state is saved for the
+    recompute."""
     names, params = zip(*block.named_parameters())
 
     def run(x, *ps):
-        return functional_call(block, dict(zip(names, ps)), (x, hw))
+        return functional_call(block, dict(zip(names, ps)),
+                               (x, hw, tile_info))
     return checkpoint(run, tokens, *params, use_reentrant=False,
                       preserve_rng_state=False)
 
@@ -218,7 +233,11 @@ class MiTEncoder(nn.Module):
             self.add_module(f'LayerNorm_{i}', layer_norm(c))
             cin = c
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, tile_info=None
+                ) -> list[torch.Tensor]:
+        """Under spatial tiling (``tile_info``) each stage's output gets
+        its halo refilled (``TileInfo.resync``): B0's receptive radius
+        within a stage stays inside the halo, so the tiles stay exact."""
         features, blk = [], 0
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i, depth in enumerate(self.depths):
@@ -227,10 +246,13 @@ class MiTEncoder(nn.Module):
             tokens = x.reshape(b, h * w, c)
             for _ in range(depth):
                 block = getattr(self, f'SegFormerBlock_{blk}')
-                tokens = (_checkpointed_block(block, tokens, (h, w)) if remat
-                          else block(tokens, (h, w)))
+                tokens = (_checkpointed_block(block, tokens, (h, w),
+                                              tile_info) if remat
+                          else block(tokens, (h, w), tile_info))
                 blk += 1
             x = getattr(self, f'LayerNorm_{i}')(tokens).reshape(b, h, w, c)
+            if tile_info is not None:
+                x = tile_info.resync(x)
             features.append(x)
         return features
 
@@ -256,12 +278,14 @@ class SegFormerModel(nn.Module):
                 c, hidden_channels=128)
 
     def forward(self, x: torch.Tensor, seed: torch.Tensor | None = None,
-                depth_seed: torch.Tensor | None = None
+                depth_seed: torch.Tensor | None = None, tile_info=None
                 ) -> dict[str, torch.Tensor]:
         """x NHWC; in train mode ``seed`` and ``depth_seed`` (int32 tensors)
-        draw the seg and depth heads' dropout masks."""
+        draw the seg and depth heads' dropout masks. ``tile_info``
+        (``parallel.collectives.TileInfo``): x holds spatial tiles of one
+        image, and the encoder runs them exactly (the heads are local)."""
         h, w = x.shape[1], x.shape[2]
-        feat = self.MiTEncoder_0(x)[-1]
+        feat = self.MiTEncoder_0(x, tile_info)[-1]
         if self.head_mode == 'faithful':
             # The heads see the features upsampled to the input size. For an
             # integer ×scale (the encoder downsamples by exactly 32) the

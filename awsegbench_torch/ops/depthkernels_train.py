@@ -38,12 +38,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..parallel.collectives import global_rows, sync_sum
 from .._device import const
 from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx_bf16_k96, _design,
                           _neighbor_pp, coarse_partial_products)
 from .headkernels_train import (_core_from_pp, _core_params, border_hidden,
-                                dropout_keep_mask, neighbor_pp_adjoint,
-                                seg_batch_stats)
+                                dropout_keep_mask, kernel_seed,
+                                neighbor_pp_adjoint, seg_batch_stats)
 from .upconv import conv1_border_lines
 
 __all__ = ['d1_core_train', 'd1_core_train_backward', 'd1_core_train_plain',
@@ -93,14 +94,12 @@ def _kernel_args(P, a1, c1, seed, r, what):
                          f'C = {c}')
     if (a1.numel(), c1.numel()) != (c, c):
         raise ValueError(f'{what}: a1/c1 need {c} values')
-    if seed.numel() != 1 or seed.device != P.device:
-        raise ValueError(f'{what}: seed must be one int32 on P\'s device')
     dev = P.device
     f32 = dict(dtype=torch.float32, device=dev)
     return design, (_build.operand(P), const(_a2, r, device=dev),
                     const(_a2_dmajor, r, device=dev),
                     *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
-                    seed.detach().to(torch.int32).reshape(1).contiguous())
+                    kernel_seed(seed, dev, what))
 
 
 def _launch_forward(P, a1, c1, seed, rate, r):
@@ -230,8 +229,9 @@ def depth_stage1_fused_train(f: torch.Tensor, conv1_kernel: torch.Tensor,
 
     P = coarse_partial_products(f, conv1_kernel)
     lines = conv1_border_lines(f, conv1_kernel, r)
-    s_full, q_full = seg_batch_stats(P, r, lines)
-    n = float(b * h * w * r * r)
+    # batch-wide: summed over the data-parallel ranks (parallel.collectives)
+    s_full, q_full = (sync_sum(t) for t in seg_batch_stats(P, r, lines))
+    n = float(global_rows(b) * h * w * r * r)
     mean_nb = s_full / n                       # bias-free mean
     var = q_full / n - mean_nb * mean_nb
     a1 = bn_scale.float() * torch.rsqrt(var + bn_eps)

@@ -43,8 +43,10 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import _build
+from ..parallel.collectives import global_rows, sync_sum
 from .._device import const
 from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx, _ayx_bf16_k96,
                           _neighbor_pp, check_shapes, coarse_partial_products,
@@ -85,8 +87,24 @@ def pixel_index(y, x, c, W: int, C: int):
 
 
 def image_seed(seed: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Image b's seed, ``seed ^ mix32(b·M1)``, as a uint32 value in int64."""
-    return (seed.to(torch.int64) & _U32) ^ _mix32(_mul32(b.to(torch.int64), _M1))
+    """Image b's seed, ``seed ^ mix32((b0 + b)·M1)``, as a uint32 value in
+    int64. ``seed`` is one int32, or two: (seed, b0), where b0 is the global
+    index of the batch's first row (a data-parallel rank's rows hash as
+    the global batch's do); b0 is 0 for one."""
+    s = seed.reshape(-1).to(torch.int64)
+    b = b.to(torch.int64) + (s[1] if s.numel() > 1 else 0)
+    return (s[0] & _U32) ^ _mix32(_mul32(b & _U32, _M1))
+
+
+def kernel_seed(seed: torch.Tensor, device: torch.device,
+                what: str) -> torch.Tensor:
+    """The kernels' seed operand: int32 (seed, b0) on ``device`` from a
+    seed of one value (b0 = 0) or two (:func:`image_seed`)."""
+    if seed.numel() not in (1, 2) or seed.device != device:
+        raise ValueError(f'{what}: seed must be one or two int32 (seed, '
+                         f'first row) on P\'s device')
+    s = seed.detach().to(torch.int32).reshape(-1)
+    return (s if s.numel() == 2 else F.pad(s, (0, 1))).contiguous()
 
 
 def hash_keep(idx: torch.Tensor, bseed: torch.Tensor, rate: float):
@@ -333,8 +351,6 @@ neighbor_pp_adjoint.launches = 0
 
 def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
     design = check_shapes(P, wp, a1, c1, bp, r, what)
-    if seed.numel() != 1 or seed.device != P.device:
-        raise ValueError(f'{what}: seed must be one int32 on P\'s device')
     dev = P.device
     f32 = dict(dtype=torch.float32, device=dev)
     return design, (_build.operand(P), const(_a2, r, device=dev),
@@ -342,7 +358,7 @@ def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
                     *(t.detach().to(**f32).contiguous() for t in (a1, c1)),
                     wp.detach().to(P.dtype).contiguous(),
                     bp.detach().to(**f32).contiguous(),
-                    seed.detach().to(torch.int32).reshape(1).contiguous())
+                    kernel_seed(seed, dev, what))
 
 
 # pointers (8), thresh, 1/keep, dropout on; then the forward's out or the
@@ -474,8 +490,9 @@ def seg_head_fused_train(f: torch.Tensor, conv1_kernel: torch.Tensor,
 
     P = coarse_partial_products(f, conv1_kernel)
     lines = conv1_border_lines(f, conv1_kernel, r)
-    s_full, q_full = seg_batch_stats(P, r, lines)
-    n = float(b * h * w * r * r)
+    # batch-wide: summed over the data-parallel ranks (parallel.collectives)
+    s_full, q_full = (sync_sum(t) for t in seg_batch_stats(P, r, lines))
+    n = float(global_rows(b) * h * w * r * r)
     mean_nb = s_full / n                       # bias-free mean
     var = q_full / n - mean_nb * mean_nb
     a1 = bn_scale.float() * torch.rsqrt(var + bn_eps)

@@ -22,8 +22,16 @@ scalar names, and these of its behaviours:
 * the loss sums stay on the device and are fetched once per epoch; a
   step's losses are fetched only every ``logging.tb_interval_steps`` steps
   and only for a TensorBoard writer or a progress bar;
-* on one device a batch is never padded (JAX pads to the mesh size), so
-  ``sample_mask`` is all ones; it still reaches the loss;
+* data parallelism: the mesh comes from ``tpu.mesh_shape`` (one process
+  per device, ``core/mesh.py``); rank 0's weights are broadcast once; a
+  loader that yields the global batch (``process_count`` 1) has each batch
+  padded to a multiple of the mesh's size by repeating its last row (the
+  padded rows leave the loss through ``sample_mask``; BN's statistics see
+  them, as in JAX) and each rank keeps its rows, while a process-sharded
+  loader's batches are this rank's rows already; the epoch sums and the
+  validation's confusion matrices are summed over the ranks
+  (``psum_tree``) at the epoch's end; rank 0 alone writes checkpoints,
+  TensorBoard and MLflow, and the others wait for it at a barrier;
 * two quirks of JAX's resume: ``train()`` loops from epoch 0 after
   ``load_checkpoint``, and ``global_step`` is not restored.
 
@@ -41,11 +49,15 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
 from .._device import const, resolve_device
+from ..core.mesh import (DataMesh, create_mesh, mesh_rows,
+                         pad_batch_to_multiple, shard_batch)
 from ..core.precision import Policy, get_policy
 from ..core.prng import RngStreams
 from ..data.pipeline import prefetch_to_device, prepare_batch
@@ -53,13 +65,17 @@ from ..losses.fog_density import FogDensityAwareLoss, cross_entropy_loss
 from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
                            iou_from_confusion)
 from ..models.factory import init_model_variables
+from ..parallel.collectives import all_reduce_, data_parallel, psum_tree
 from ..utils.config import check_tpu_section, get_device_config
 from ..utils.profiling import ThroughputMeter, trace
 from ..weather.corruption import WEATHER_CONDITIONS
+from ..weather.corruption import draw_corruption
 from .checkpoints import CheckpointManager
 from .optim import Optimizer, create_optimizer, create_scheduler
 
 logger = logging.getLogger(__name__)
+
+ARRAY_KEYS = ('image', 'label', 'weather_id', 'sample_id')
 
 try:
     from tensorboardX import SummaryWriter
@@ -114,14 +130,31 @@ def forward_params(model: nn.Module) -> frozenset:
     return _forward_params(type(model))
 
 
+@torch.no_grad()
+def all_reduce_grads(params: Sequence[torch.Tensor], mesh: DataMesh) -> None:
+    """Sums every parameter's ``.grad`` over the mesh's ranks in place, in
+    one collective over a flat f32 buffer (a parameter with no gradient
+    gets zeros first, as the optimiser would give it)."""
+    if mesh.size <= 1:
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    flat = all_reduce_(torch.cat([g.reshape(-1).float() for g in grads]),
+                       mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
                policy: Policy, image: torch.Tensor,
                targets: dict[str, torch.Tensor],
                fog_density: torch.Tensor | None, seed: torch.Tensor,
                aspp_mask: torch.Tensor | None = None,
                generator: torch.Generator | None = None,
-               depth_seeds: dict[str, torch.Tensor] | None = None
-               ) -> dict[str, torch.Tensor]:
+               depth_seeds: dict[str, torch.Tensor] | None = None,
+               mesh: DataMesh | None = None) -> dict[str, torch.Tensor]:
     """One optimiser step on a prepared batch: the train-mode forward of
     the parameters cast to the compute dtype (BN running stats updated),
     ``loss_fn(outputs, targets, fog_density)`` on f32 outputs (either loss
@@ -131,20 +164,35 @@ def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
     ensemble, 'depth_seed' for one member); the forward gets those of the
     draws its signature names (a SegFormer takes no ASPP mask). Returns
     the loss dict, detached; the gradients stay in the parameters'
-    ``.grad``."""
+    ``.grad``.
+
+    With a ``mesh`` above one rank, the batch is this rank's rows of the
+    global batch. The forward and the loss run under
+    ``parallel.collectives.data_parallel``, so the loss is the global
+    batch's on every rank. The gradient convention: each rank backprops
+    its share ``total_loss / world``; the all-reduces inside the forward
+    sum their gradients over the ranks in the backward, so the ranks'
+    parameter gradients *sum* (not average) to the global batch's
+    gradient, and :func:`all_reduce_grads` sums them before the clip. The
+    global-norm clip and AdamW then see the same gradients on every rank."""
     if not model.training:
         raise ValueError('train_step: the model is not in train mode')
     kwargs = {'seed': seed, 'aspp_mask': aspp_mask, 'generator': generator,
               **(depth_seeds or {})}
     takes = forward_params(model)
-    outputs = functional_call(
-        model, policy.cast_to_compute(model),
-        (image.to(policy.compute_dtype),),
-        {k: v for k, v in kwargs.items() if k in takes})
-    outputs = {k: v.float() for k, v in outputs.items()}
-    loss = loss_fn(outputs, targets, fog_density)
-    optimizer.zero_grad()
-    loss['total_loss'].backward()
+    world = mesh.size if mesh is not None else 1
+    with data_parallel(mesh):
+        outputs = functional_call(
+            model, policy.cast_to_compute(model),
+            (image.to(policy.compute_dtype),),
+            {k: v for k, v in kwargs.items() if k in takes})
+        outputs = {k: v.float() for k, v in outputs.items()}
+        loss = loss_fn(outputs, targets, fog_density)
+        optimizer.zero_grad()
+        total = loss['total_loss']
+        (total / world if world > 1 else total).backward()
+    if world > 1:
+        all_reduce_grads(optimizer.params, mesh)
     optimizer.step()
     return {k: v.detach() for k, v in loss.items()}
 
@@ -198,7 +246,8 @@ class AdverseWeatherTrainer:
                  config: Dict[str, Any],
                  device: Optional[str | torch.device] = None,
                  checkpoint_dir: str = 'checkpoints',
-                 log_dir: str = 'logs', seed: Optional[int] = None) -> None:
+                 log_dir: str = 'logs', seed: Optional[int] = None,
+                 mesh: Optional[DataMesh] = None) -> None:
         from .step import TrainStep     # step.py builds on train_step above
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -225,6 +274,9 @@ class AdverseWeatherTrainer:
         self.log_dir.mkdir(parents=True, exist_ok=True)
 
         check_tpu_section(config)
+        self.mesh = mesh if mesh is not None else create_mesh(
+            mesh_shape=(config.get('tpu') or {}).get('mesh_shape', 'auto'))
+        self.is_main = self.mesh.rank == 0
         self.device = resolve_device(
             device if device is not None
             else get_device_config(config.get('device', 'auto')))
@@ -247,10 +299,11 @@ class AdverseWeatherTrainer:
         self.loss_fn = self._setup_loss_function()
         self._train_step = TrainStep(
             self.model, self.optimizer, precision, self.device,
-            loss_fn=self.loss_fn, apply_augmentation=self.apply_augmentation)
+            loss_fn=self.loss_fn, apply_augmentation=self.apply_augmentation,
+            mesh=self.mesh)
 
         self.writer = (SummaryWriter(log_dir=str(self.log_dir))
-                       if _TB_AVAILABLE else None)
+                       if _TB_AVAILABLE and self.is_main else None)
         self.ckpt = CheckpointManager(str(self.checkpoint_dir))
 
         self.current_epoch = 0
@@ -266,7 +319,8 @@ class AdverseWeatherTrainer:
             restore_best_weights=es_cfg.get('restore_best_weights', True))
         self._setup_mlflow()
         logger.info(f"Initialized AdverseWeatherTrainer with "
-                    f"{type(model).__name__} on {self.device}")
+                    f"{type(model).__name__} on {self.device}, rank "
+                    f"{self.mesh.rank} of {self.mesh.size}")
 
     # ------------------------------------------------------------------ setup
 
@@ -281,6 +335,8 @@ class AdverseWeatherTrainer:
         return cross_entropy_loss
 
     def _setup_mlflow(self) -> None:
+        if not self.is_main:
+            return
         if not MLFLOW_AVAILABLE:
             logger.warning("MLflow not available. Skipping MLflow setup.")
             return
@@ -305,13 +361,37 @@ class AdverseWeatherTrainer:
 
     # ------------------------------------------------------------- host utils
 
+    def _rows(self, loader):
+        """This rank's rows of each of the loader's batches, with their
+        sample masks under ``'sample_mask'``. On a mesh above one rank a
+        global batch is padded to a multiple of the mesh's size first (the
+        JAX trainer's ``_pad_batch``) and cut to this rank's rows (numpy); a
+        process-sharded loader's batch is this rank's rows already."""
+        split = (self.mesh.size > 1
+                 and getattr(loader, 'process_count', 1) == 1)
+        for batch in loader:
+            n = len(batch['image'])
+            mask = np.ones(n, np.float32)
+            if split:
+                arrays = {k: np.asarray(batch[k]) for k in ARRAY_KEYS
+                          if k in batch}
+                (arrays, mask), _ = pad_batch_to_multiple((arrays, mask),
+                                                          self.mesh.size)
+                mask[n:] = 0.0
+                batch, mask = shard_batch((arrays, mask), self.mesh)
+            yield dict(batch, sample_mask=mask)
+
     def _device_batches(self, loader):
-        """The loader's batches on the device, each copied while the step
-        before it runs (``prefetch_to_device``), with their sample masks:
-        all ones, as one device never pads a batch."""
-        for batch in prefetch_to_device(loader, self.device):
-            bsz = int(batch['image'].shape[0])
-            yield batch, const(torch.ones, bsz, device=self.device)
+        """This rank's rows of the loader's batches on the device
+        (:meth:`_rows`), each copied while the step before it runs
+        (``prefetch_to_device``), with their sample masks. One device never
+        pads a batch: its mask is all ones."""
+        for batch in prefetch_to_device(self._rows(loader), self.device):
+            mask = batch.pop('sample_mask')
+            if self.mesh.size == 1:
+                mask = const(torch.ones, int(mask.shape[0]),
+                             device=self.device)
+            yield batch, mask
 
     def _progress(self, iterable, desc: str, total=None):
         """tqdm progress within an epoch, when ``logging.progress_bar`` is
@@ -352,7 +432,7 @@ class AdverseWeatherTrainer:
             loss = self._train_step(
                 batch['image'], batch['label'], batch['weather_id'],
                 generator=g, draws=None if draws is None else draws[i],
-                sample_mask=mask)
+                sample_mask=mask, sharded=True)
             self.step_count += 1
             n = mask.sum()
             sums += torch.stack([loss['total_loss'] * n,
@@ -371,11 +451,12 @@ class AdverseWeatherTrainer:
                 if bar:
                     bar.set_postfix(loss=f"{m['total_loss']:.4f}",
                                     lr=f'{lr:.2e}')
-            meter.update(int(batch['image'].shape[0]))
+            meter.update(int(batch['image'].shape[0]) * self.mesh.size)
             self.global_step += 1
         if bar:
             bar.close()
 
+        sums = psum_tree(sums, self.mesh)
         meter.stop(sync_on=sums)
         total, seg, depth, n_samples = sums.tolist()   # the one fetch
         out = {
@@ -407,7 +488,7 @@ class AdverseWeatherTrainer:
                                       self._sizes(self.val_loader))
         self.model.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), data_parallel(self.mesh):
                 weights = self.policy.cast_to_compute(self.model,
                                                       buffers=True)
                 for i, (batch, mask) in enumerate(batches):
@@ -415,12 +496,18 @@ class AdverseWeatherTrainer:
                     g = self.rngs.fold('weather', step_offset + i, dev)
                     images = batch['image'].to(dev)
                     wids = batch['weather_id'].to(dev)
-                    _, h, w, _ = images.shape
+                    b, h, w, _ = images.shape
+                    # the global batch's draws (in the one-device order),
+                    # this rank's rows of them
+                    nb = b * self.mesh.size
+                    rows = mesh_rows(self.mesh, nb)
+                    corruption = ({k: v.to(dev) for k, v in
+                                   d['corruption'].items()}
+                                  if 'corruption' in d else draw_corruption(
+                                      torch.zeros(nb, device=dev), h, w, g))
                     prep = prepare_batch(
-                        images, batch['label'].to(dev), wids, generator=g,
-                        draws=({k: v.to(dev)
-                                for k, v in d['corruption'].items()}
-                               if 'corruption' in d else None),
+                        images, batch['label'].to(dev), wids,
+                        draws={k: v[rows] for k, v in corruption.items()},
                         include_depth=self.include_depth)
                     out = functional_call(
                         self.model, weights,
@@ -431,9 +518,11 @@ class AdverseWeatherTrainer:
                         targets['depth'] = prep['depth']
                     if use_fog:
                         fog_u = d.get('fog_u')
-                        fog = fog_density_from_weather(
-                            wids, h, w, g,
-                            None if fog_u is None else fog_u.to(dev))
+                        fog_u = (torch.rand((nb, h, w), generator=g,
+                                            device=dev)
+                                 if fog_u is None else fog_u.to(dev))
+                        fog = fog_density_from_weather(wids, h, w,
+                                                       u=fog_u[rows])
                         loss = self.loss_fn(out, targets, fog,
                                             sample_mask=mask)
                     else:
@@ -450,6 +539,7 @@ class AdverseWeatherTrainer:
         if bar:
             bar.close()
 
+        cm, sums = psum_tree((cm, sums), self.mesh)
         total, seg, depth, n_samples = sums.tolist()   # the one fetch
         cms = cm.cpu()
         out = {
@@ -512,7 +602,7 @@ class AdverseWeatherTrainer:
                 self.writer.add_scalar('Epoch/ValMIoU',
                                        val_metrics['val_miou'], epoch)
 
-            if MLFLOW_AVAILABLE:
+            if MLFLOW_AVAILABLE and self.is_main:
                 try:
                     mlflow.log_metrics({
                         'train_loss': train_metrics['train_loss'],
@@ -538,7 +628,7 @@ class AdverseWeatherTrainer:
 
         if self.writer:
             self.writer.close()
-        if MLFLOW_AVAILABLE:
+        if MLFLOW_AVAILABLE and self.is_main:
             try:
                 mlflow.end_run()
             except Exception:
@@ -563,10 +653,14 @@ class AdverseWeatherTrainer:
 
     def save_checkpoint(self, epoch: int, metrics: Dict[str, float],
                         is_best: bool = False) -> None:
+        """Rank 0 writes the checkpoint; the other ranks wait for it."""
         sched_state = self.scheduler.state_dict() if self.scheduler else None
-        self.ckpt.save(epoch, self._model_tree(), self._opt_tree(),
-                       {**metrics, 'scheduler': sched_state},
-                       self.config, is_best=is_best)
+        if self.is_main:
+            self.ckpt.save(epoch, self._model_tree(), self._opt_tree(),
+                           {**metrics, 'scheduler': sched_state},
+                           self.config, is_best=is_best)
+        if self.mesh.size > 1:
+            dist.barrier(group=self.mesh.group)
 
     def load_checkpoint(self, checkpoint_path: str) -> None:
         """Restore the weights, BN statistics, optimiser state, epoch and

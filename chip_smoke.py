@@ -150,6 +150,17 @@ Phases, each printing one JSON line:
     (within 2e-3), and an f32 artifact exported on the CPU, moved to the
     card at load: counted (K1 8, K2 1, both ``simt_f32``) and equal to the
     card-exported one. Export and load seconds and artifact MB.
+15. parallel: the data mesh and spatial tiling. The main path's ensemble
+    at 1024×2048 in 512×1024 tiles with a 128-pixel halo against its
+    monolithic forward (f32 within rtol 2e-4 and atol 2e-5, argmax
+    equal; bf16 argmax against f32 no more than 0.1% below the
+    monolithic bf16's; a tiled forward counted: K1 8, K2 1; ms and peak
+    memory of both), the ``Evaluator`` with ``spatial_tiling='on'``
+    against the monolithic sweep (mIoU and ECE within 1e-4, counted), and
+    two ranks on the one card over gloo: ``TrainStep`` at 512×1024 with a
+    global batch of 8 split 4 + 4 against one process (bf16, counted and
+    timed, and f32; ``phase_parallel`` states the tolerances), and the
+    tiled forward with its tiles split 2 + 2 against one rank's.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -158,7 +169,8 @@ kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
 (the evaluator's, the two CLIs', the pretrained eval's, the remat steps',
-the augmentation pipeline's and one serving request's too) under
+the augmentation pipeline's, one serving request's, and the parallel
+phase's tiled forward, tiled sweep and each rank's step too) under
 ``launches_by_path``; the
 kernels with two designs add their ``design`` per dtype and their
 per-design counts per path) and the card's ``nvidia-smi`` name and power
@@ -2294,35 +2306,9 @@ def phase_remat(dev):
         raise AssertionError(f'remat: K1 launched {k1} times per step with '
                              'remat off and on, expected (8, 16)')
 
-    def spread(grads, what):
-        """(the SegFormer and ensemble leaves' excess over rtol 2e-3 per
-        leaf scale, DeepLab's largest relative L2 error, the bit-equal
-        share of leaves) of ``grads`` against remat off's."""
-        top = max(t.abs().max().item() for t in off['grads'].values())
-        held = dl_rel = 0.0
-        for name, want in off['grads'].items():
-            got, scale = grads[name], want.abs().max().item()
-            if scale < 1e-6 * top:
-                if got.abs().max().item() >= 1e-6 * top:
-                    raise AssertionError(f'{what} {name}: grad not '
-                                         'negligible')
-                continue
-            if name.startswith('deeplabv3plus.'):
-                dl_rel = max(dl_rel, ((got - want).norm()
-                                      / want.norm()).item())
-                continue
-            rel = ((got - want).abs() - 2e-3 * want.abs()).max().item() \
-                / scale
-            held = max(held, rel)
-            if rel > 2e-3:
-                raise AssertionError(f'{what} {name}: gradients differ by '
-                                     f'{rel} of the leaf scale')
-        exact = sum(torch.equal(grads[n], g) for n, g in
-                    off['grads'].items()) / len(off['grads'])
-        return held, dl_rel, exact
-
-    held, dl_rel, exact = spread(on['grads'], 'remat')
-    floor = spread(res['off_again']['grads'], 'remat off twice')
+    held, dl_rel, exact = grad_spread(on['grads'], off['grads'], 'remat')
+    floor = grad_spread(res['off_again']['grads'], off['grads'],
+                        'remat off twice')
     lr = 1e-3                               # bench.py's AdamW
     param_err = max(max_err(on['params'][n], p)
                     for n, p in off['params'].items())
@@ -2597,6 +2583,413 @@ def phase_serving(dev):
     return launches
 
 
+# The parallel phase: Cityscapes' 1024×2048 split into a 2×2 grid of
+# 512×1024 tiles with a 128-pixel halo (4 tiles of 768×1280).
+TILE_HW, TILE_GRID, TILE_HALO = (1024, 2048), (512, 1024), 128
+PARALLEL_JOIN_S = 240           # the two ranks' time to finish, or fail
+
+
+def grad_spread(grads, want, what, hold=True):
+    """(the SegFormer and ensemble leaves' largest excess over rtol 2e-3 per
+    leaf scale, DeepLab's largest relative L2 error, the bit-equal share of
+    leaves) of ``grads`` against ``want``, both by name. With ``hold`` it
+    raises past the train parity tolerances of the SegFormer and ensemble
+    leaves (2e-3 of the leaf's scale; analytically zero leaves
+    negligible); DeepLab's bound (0.1 relative L2: library convs,
+    ill-conditioned in the low-precision backward) is the caller's."""
+    import torch
+    top = max(t.abs().max().item() for t in want.values())
+    held = dl_rel = 0.0
+    for name, w in want.items():
+        got, scale = grads[name], w.abs().max().item()
+        if scale < 1e-6 * top:
+            if hold and got.abs().max().item() >= 1e-6 * top:
+                raise AssertionError(f'{what} {name}: grad not negligible')
+            continue
+        if name.startswith('deeplabv3plus.'):
+            dl_rel = max(dl_rel, ((got - w).norm() / w.norm()).item())
+            continue
+        rel = ((got - w).abs() - 2e-3 * w.abs()).max().item() / scale
+        held = max(held, rel)
+        if hold and rel > 2e-3:
+            raise AssertionError(f'{what} {name}: gradients differ by {rel} '
+                                 'of the leaf scale')
+    exact = sum(torch.equal(grads[n], g) for n, g in want.items()) / len(want)
+    return held, dl_rel, exact
+
+
+def member_l2(grads, want) -> dict:
+    """Each member's gradient (its leaves together; 'ensemble' for the
+    mixing weights and the temperature) as the relative L2 distance of
+    ``grads`` from ``want``."""
+    import torch
+    out = {}
+    for member in ('segformer', 'deeplabv3plus', 'ensemble'):
+        names = [n for n in want if n.split('.')[0] == member
+                 or (member == 'ensemble' and '.' not in n)]
+        g = torch.cat([grads[n].reshape(-1) for n in names])
+        w = torch.cat([want[n].reshape(-1) for n in names])
+        out[member] = ((g - w).norm() / w.norm()).item()
+    return out
+
+
+def tiled(model, x, mesh=None):
+    """The exact tiled forward of one [H, W, 3] image (``tile_info``)."""
+    from awsegbench_torch.parallel.collectives import tiled_forward
+    return tiled_forward(lambda _, t, info: model(t, tile_info=info), None,
+                         x, *TILE_GRID, TILE_HALO, mesh=mesh,
+                         with_tile_info=True)
+
+
+def parallel_train_inputs(dev):
+    """The 2-rank train step's global batch (8 at 512×1024, mixed weather)
+    and every draw of it, made on the card from one seed."""
+    import torch
+    from awsegbench_torch.data.pipeline import draw_augment
+    from awsegbench_torch.weather.corruption import draw_corruption
+    g = torch.Generator(device=dev).manual_seed(23)
+    labels = torch.randint(0, 19, (B, H, W), generator=g, device=dev)
+    labels[:, :16] = 255
+    batch = (torch.randint(0, 256, (B, H, W, 3), generator=g, device=dev,
+                           dtype=torch.uint8), labels,
+             torch.arange(B, device=dev) % 5)
+    seed = lambda v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
+    draws = {'corruption': draw_corruption(batch[2], H, W, g),
+             'augment': draw_augment(B, g, dev),
+             'fog_u': torch.rand((B, H, W), generator=g, device=dev),
+             'seed': seed(31), 'segformer_depth_seed': seed(-32),
+             'deeplab_depth_seed': seed(33),
+             'aspp_mask': torch.rand((B, H // 16, W // 16, 256), generator=g,
+                                     device=dev) < 0.5}
+    return batch, draws
+
+
+def parallel_step(dev, mesh, precision):
+    """``TrainStep`` on the train path's model (depth heads) in
+    ``precision``, plain SGD at lr 0 without a clip (the raw gradients stay
+    in ``.grad``), on ``mesh``."""
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.optim import create_optimizer
+    from awsegbench_torch.train.step import TrainStep
+    model = create_model(TRAIN_CFG, device=dev, seed=0)
+    sgd0 = {'type': 'sgd', 'learning_rate': 0.0, 'momentum': 0.0,
+            'weight_decay': 0.0}
+    return TrainStep(model, create_optimizer(model.parameters(), sgd0,
+                                             grad_clip=0.0),
+                     precision=precision, device=dev, mesh=mesh)
+
+
+def parallel_rank(rank: int, port: int, tmp: str, device: str) -> None:
+    """One of two ranks on the one card, over gloo (NCCL takes one card
+    per rank): (a) the 2-rank train step on its 4 rows of the global
+    batch of 8, in bf16 (counted, then 3 timed steps and the gradient
+    all-reduce alone) and in f32; (b) the f32 tiled forward with 2 of the
+    4 tiles. Saves its results under ``tmp``."""
+    import torch
+    from awsegbench_torch.core.mesh import create_mesh, init_distributed
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.trainer import all_reduce_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    init_distributed(f'localhost:{port}', 2, rank, backend='gloo')
+    try:
+        mesh = create_mesh()
+        inp = torch.load(Path(tmp) / 'inputs.pt', weights_only=False)
+        batch = tuple(t.to(dev) for t in inp['batch'])
+        out = {}
+        step = parallel_step(dev, mesh, 'bf16')
+        loss, out['launches'] = run_counted(
+            lambda: step(*batch, draws=inp['draws']), TRAIN_COUNTERS,
+            f'rank {rank} train')
+        out['bf16'] = ({k: float(v) for k, v in loss.items()},
+                       {n: p.grad.float().cpu() for n, p in
+                        step.model.named_parameters()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(*batch, draws=inp['draws'])
+        torch.cuda.synchronize()
+        out['step_ms'] = (time.perf_counter() - t0) / 3 * 1e3
+        params = step.optimizer.params
+        out['all_reduce_ms'] = []
+        for _ in range(3):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_grads(params, mesh)
+            torch.cuda.synchronize()
+            out['all_reduce_ms'].append((time.perf_counter() - t0) * 1e3)
+        out['grad_mb'] = sum(p.numel() for p in params) * 4 / 1e6
+        del step, params
+        torch.cuda.empty_cache()
+        step = parallel_step(dev, mesh, 'fp32')
+        loss = step(*batch, draws=inp['draws'])
+        out['fp32'] = ({k: float(v) for k, v in loss.items()},
+                       {n: p.grad.cpu() for n, p in
+                        step.model.named_parameters()})
+        del step
+        torch.cuda.empty_cache()
+        model = create_model(MODEL_CFG, device=dev, seed=0).eval()
+        with torch.inference_mode():
+            out['tiled_seg'] = tiled(model, inp['image'].to(dev),
+                                     mesh)['segmentation'].cpu()
+        torch.save(out, Path(tmp) / f'rank{rank}.pt')
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_two_ranks(tmp: str, dev) -> list:
+    """``parallel_rank`` in two spawned processes on a free port; raises if
+    a rank fails or does not finish within ``PARALLEL_JOIN_S``."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, tmp, str(dev)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(30)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0, 0]:
+        raise AssertionError(f'parallel: rank exit codes {codes}, '
+                             f'{len(hung)} killed after {PARALLEL_JOIN_S} s')
+    return [torch.load(Path(tmp) / f'rank{r}.pt', weights_only=False)
+            for r in range(2)]
+
+
+def phase_parallel(dev):
+    """The data mesh and spatial tiling on the card.
+
+    1. Tiled eval on one rank: the main path's ensemble (19 classes, depth
+       heads, faithful heads) at 1024×2048 in 512×1024 tiles with a
+       128-pixel halo (4 tiles of 768×1280; K1 sees the 4 tiles' heads
+       against the full image's 2048 reduced tokens in stage 1). In f32
+       with TF32 off, tiled against monolithic within rtol 2e-4 and atol
+       2e-5 (the JAX package's tolerance, tests/test_parallel.py), argmax
+       equal; in bf16 the tiled forward's argmax agreement with the f32
+       monolithic one at most 0.1% below the bf16 monolithic forward's
+       (bf16 rounding alone moves the argmax of this seeded model's nearly
+       tied logits on about 1% of the pixels), a tiled forward counted (K1
+       8 launches, K2 1); ms and peak memory, tiled and monolithic.
+    2. An ``Evaluator`` with ``spatial_tiling='on'`` on two synthetic
+       1024×2048 images in f32 against the monolithic sweep: mIoU and ECE
+       within 1e-4; the tiled sweep's launches counted.
+    3. Two ranks on this one card over gloo (spawned, a free port, a join
+       timeout): (a) ``TrainStep`` at 512×1024 on a global batch of 8 split
+       4 + 4, depth heads, against one process at batch 8 with the same
+       draws, in bf16 (the path's; counted) and in f32: the losses within
+       1e-3 relative, the ranks' gradients bit-equal to each other; the
+       f32 gradients at the train parity tolerances (``grad_spread``); the
+       bf16 gradients, whose reductions round per rank, each member's
+       within 1.5 times (and 1e-3) the one-process bf16 gradient's relative
+       L2 distance from the f32 one (``member_l2``); per-rank step ms, the
+       gradient all-reduce's ms (gloo through the host) and launches per
+       rank. (b)
+       Item 1's f32 tiled forward with its 4 tiles split 2 + 2 over the
+       ranks equal to item 1's (rtol 2e-4, atol 2e-5, argmax equal).
+    Returns the launches of the counted tiled forward (bf16), of the tiled
+    sweep (f32: K1 and K2 through their f32 design) and of each rank's
+    bf16 step."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from awsegbench_torch.core.mesh import DataMesh
+    from awsegbench_torch.eval.evaluator import Evaluator
+    from awsegbench_torch.models import create_model
+
+    t_phase = time.perf_counter()
+    hh, ww = TILE_HW
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((hh, ww, 3), generator=g, device=dev)
+    res = {'phase': 'parallel', 'nvidia_smi': nvidia_smi(), 'hw': [hh, ww],
+           'tile': list(TILE_GRID), 'halo': TILE_HALO}
+
+    # 1. tiled against monolithic, f32 then bf16
+    model = create_model(MODEL_CFG, device=dev, seed=0).eval()
+    with torch.inference_mode():
+        mono = {k: v[0] for k, v in model(x[None]).items()}
+        til = tiled(model, x)
+    f32_err = {}
+    for k, want in mono.items():
+        f32_err[k] = max_err(til[k], want)
+        if not torch.allclose(til[k], want, rtol=2e-4, atol=2e-5):
+            raise AssertionError(f'parallel: f32 tiled {k} differs from the '
+                                 f'monolithic forward by {f32_err[k]}')
+        if k != 'depth' and not k.endswith('_depth') and not torch.equal(
+                til[k].argmax(-1), want.argmax(-1)):
+            raise AssertionError(f'parallel: f32 tiled {k} argmax differs')
+    res['f32_tiled_vs_mono_max_abs_err'] = f32_err
+    f32_tiled_seg = til['segmentation']
+    f32_argmax = mono['segmentation'].argmax(-1)
+    del mono, til
+    model = model.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+
+    @torch.inference_mode()
+    def run_tiled():
+        return tiled(model, xb)
+
+    @torch.inference_mode()
+    def run_mono():
+        return model(xb[None])
+
+    til, launches = run_counted(run_tiled, ('sr_attention', 'seg_core'),
+                                'tiled eval')
+    if (launches['sr_attention'], launches['seg_core']) != (8, 1):
+        raise AssertionError(f'parallel: a tiled forward launched {launches}'
+                             ', expected K1 8 and K2 1')
+    mono = run_mono()
+
+    def agree(a, b):
+        return (a['segmentation'].reshape(-1, 19).argmax(-1)
+                == b.reshape(-1)).float().mean().item()
+    res['bf16_argmax_agreement'] = {
+        'tiled_vs_monolithic': agree(til, mono['segmentation'].argmax(-1)),
+        'tiled_vs_f32': agree(til, f32_argmax),
+        'monolithic_vs_f32': agree(mono, f32_argmax)}
+    # bf16 rounding alone moves the argmax of this seeded model's nearly
+    # tied logits; tiling may move at most 0.1% of the pixels beyond it
+    a = res['bf16_argmax_agreement']
+    if a['tiled_vs_f32'] < a['monolithic_vs_f32'] - 1e-3:
+        raise AssertionError(f'parallel: bf16 argmax agreement {a}')
+    del til, mono
+    for name, fn in (('tiled', run_tiled), ('monolithic', run_mono)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res[f'bf16_{name}_ms'] = time_ms(fn, reps=5, warmup=1)
+        res[f'bf16_{name}_peak_mem_gib'] = (torch.cuda.max_memory_allocated()
+                                            / 2 ** 30)
+    res['tiled_launches'] = launches
+    del model, xb
+    torch.cuda.empty_cache()
+
+    # 2. the sweep with spatial tiling against the monolithic sweep
+    rng = np.random.default_rng(24)
+    batches = []
+    for i in range(2):
+        labels = rng.integers(0, 19, (1, hh, ww)).astype(np.int32)
+        labels[:, :32] = 255
+        batches.append({'image': rng.integers(0, 256, (1, hh, ww, 3),
+                                              dtype=np.uint8),
+                        'label': labels,
+                        'weather_id': np.array([i + 1], np.int32),
+                        'sample_id': np.array([i], np.int32)})
+    sweep = {}
+    for tiling in ('off', 'on'):
+        cfg = {'model': {'num_classes': 19}, 'tpu': {'precision': 'fp32'},
+               'evaluation': {'spatial_tiling': tiling,
+                              'tile_size': list(TILE_GRID),
+                              'tile_halo': TILE_HALO}}
+        ev = Evaluator(create_model(MODEL_CFG, device=dev, seed=0), cfg,
+                       device=dev)
+        sweep[tiling], counts = count_launches(lambda: ev.run(batches,
+                                                              seed=7))
+        del ev
+        torch.cuda.empty_cache()
+    sweep_err = {k: abs(sweep['on'][k] - sweep['off'][k])
+                 for k in ('overall_miou', 'expected_calibration_error')}
+    if max(sweep_err.values()) > 1e-4:
+        raise AssertionError(f'parallel: tiled sweep against monolithic '
+                             f'{sweep_err}')
+    res['sweep_tiled_vs_mono_abs_err'] = sweep_err
+    res['tiled_sweep_launches'] = sweep_launches = counts   # tiling 'on'
+    res['sweep_seconds'] = {k: v['_eval_seconds'] for k, v in sweep.items()}
+
+    # 3. two ranks on this card over gloo, against one process
+    batch, draws = parallel_train_inputs(dev)
+    one = {}
+    for precision in ('bf16', 'fp32'):
+        step = parallel_step(dev, DataMesh(), precision)
+        loss = step(*batch, draws=draws)
+        one[precision] = ({k: float(v) for k, v in loss.items()},
+                          {n: p.grad.float().cpu()
+                           for n, p in step.model.named_parameters()})
+        del step, loss
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix='awseg_parallel_')
+    try:
+        torch.save({'batch': tuple(t.cpu() for t in batch),
+                    'draws': {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                                  if isinstance(v, dict) else v.cpu())
+                              for k, v in draws.items()},
+                    'image': x.cpu()}, Path(tmp) / 'inputs.pt')
+        t0 = time.perf_counter()
+        ranks = run_two_ranks(tmp, dev)
+        res['two_rank_wall_s'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+    for precision, (loss1, grads1) in one.items():
+        loss2, grads2 = r0[precision]
+        if not all(torch.equal(grads2[n], r1[precision][1][n])
+                   for n in grads2):
+            raise AssertionError(f'parallel: the two ranks hold different '
+                                 f'{precision} gradients after the '
+                                 'all-reduce')
+        for k in ('total_loss', 'depth_loss'):
+            if not abs(loss2[k] - loss1[k]) <= 1e-3 * abs(loss1[k]):
+                raise AssertionError(f'parallel: {precision} 2-rank {k} '
+                                     f'{loss2[k]}, 1 process {loss1[k]}')
+        # f32: held at the train parity tolerances. bf16: the split batch
+        # rounds its reductions elsewhere (per rank, then summed), which
+        # moves its gradients by bf16's own error; each member is held
+        # against the f32 gradients of one process, within 1.5 times (and
+        # 1e-3) of the one-process bf16 step's distance from them.
+        held, dl_rel, exact = grad_spread(grads2, grads1,
+                                          f'parallel 2-rank {precision}',
+                                          hold=precision == 'fp32')
+        if precision == 'fp32' and dl_rel > 0.1:
+            raise AssertionError(f'parallel: f32 2-rank DeepLab gradients '
+                                 f'differ by {dl_rel} (relative L2 of a '
+                                 'leaf)')
+        res[precision] = {
+            'loss_1_process': loss1, 'loss_2_ranks': loss2,
+            'grad_excess_over_rtol_per_leaf_scale': held,
+            'deeplab_grad_max_rel_l2': dl_rel,
+            'grads_bit_equal_share': exact}
+    f32_grads = one['fp32'][1]
+    l2 = {'2_ranks': member_l2(r0['bf16'][1], f32_grads),
+          '1_process': member_l2(one['bf16'][1], f32_grads)}
+    res['bf16']['member_rel_l2_from_f32_1_process'] = l2
+    for member, e1 in l2['1_process'].items():
+        if l2['2_ranks'][member] > 1.5 * e1 + 1e-3:
+            raise AssertionError(f'parallel: bf16 2-rank {member} gradients '
+                                 f'{l2} from the f32 ones')
+    tile_err = max_err(r0['tiled_seg'], f32_tiled_seg.cpu())
+    for r in ranks:
+        if not torch.allclose(r['tiled_seg'], f32_tiled_seg.cpu(),
+                              rtol=2e-4, atol=2e-5) or not torch.equal(
+                r['tiled_seg'].argmax(-1), f32_tiled_seg.cpu().argmax(-1)):
+            raise AssertionError(f'parallel: tiles over 2 ranks differ from '
+                                 f'one rank by {tile_err}')
+    res.update({
+        'train_batch': B, 'train_hw': [H, W],
+        'rank_step_ms_bf16': [r['step_ms'] for r in ranks],
+        'all_reduce_ms': [r['all_reduce_ms'] for r in ranks],
+        'all_reduce_mb': r0['grad_mb'], 'backend': 'gloo (one card)',
+        'tiles_2_ranks_vs_1_max_abs_err': tile_err,
+        'rank_launches': [r['launches'] for r in ranks],
+        'phase_wall_s': time.perf_counter() - t_phase})
+    emit(res)
+    return launches, sweep_launches, r0['launches'], r1['launches']
+
+
 def main() -> int:
     try:
         import torch
@@ -2650,6 +3043,8 @@ def main() -> int:
     remat_off_launches, remat_on_launches = phase_remat(dev)
     augment_launches = phase_weather_extras(dev)
     serving_launches = phase_serving(dev)
+    (tiled_launches, tiled_sweep_launches, rank0_launches,
+     rank1_launches) = phase_parallel(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -2667,7 +3062,11 @@ def main() -> int:
              'pretrained': pretrained_launches,
              'remat_off': remat_off_launches, 'remat_on': remat_on_launches,
              'weather_extras': augment_launches,
-             'serving': serving_launches}
+             'serving': serving_launches,
+             'parallel_tiled_eval': tiled_launches,
+             'parallel_tiled_sweep': tiled_sweep_launches,
+             'parallel_train_rank0': rank0_launches,
+             'parallel_train_rank1': rank1_launches}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):

@@ -7,7 +7,7 @@ through both ``load_config``s; the defaults, the typed parsing of override
 values and ``validate_config``'s errors are the same. The device layer is
 the port's own: ``'auto'`` means the card and raises without one, ``'cpu'``
 is the CPU, the ``tpu`` key the port does not implement raises
-(``mesh_shape``), and ``remat`` builds a model whose encoder checkpoints.
+(a ``mesh_shape`` with a model axis), and ``remat`` builds a model whose encoder checkpoints.
 """
 
 import logging
@@ -157,23 +157,27 @@ def test_device_config():
                 pconfig.get_device_config(name)
 
 
+# A 'model' mesh axis above 1 is the next slice of the multi-device port;
+# a mesh_shape that is neither 'auto' nor a dict of axes is refused, as
+# JAX's create_mesh refuses it.
 TPU_RAISES = [
-    ({'tpu': {'mesh_shape': {'data': 2, 'model': 2}}}, 'item 7'),
-    ({'tpu': {'mesh_shape': [4]}}, 'item 7'),
+    ({'tpu': {'mesh_shape': {'data': 2, 'model': 2}}}, NotImplementedError,
+     'next slice'),
+    ({'tpu': {'mesh_shape': [4]}}, ValueError, 'Unsupported mesh_shape'),
 ]
 
 
-@pytest.mark.parametrize('cfg,match', TPU_RAISES,
+@pytest.mark.parametrize('cfg,exc,match', TPU_RAISES,
                          ids=['mesh_dict', 'mesh_list'])
-def test_tpu_keys_the_port_lacks_raise(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_tpu_keys_the_port_lacks_raise(cfg, exc, match):
+    with pytest.raises(exc, match=match):
         pconfig.check_tpu_section(cfg)
     whole = {'model': {'type': 'segformer', 'num_classes': 3,
                        **cfg.get('model', {})}, 'tpu': cfg.get('tpu', {})}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         create_model(whole, device='cpu')
     if 'mesh_shape' in cfg.get('tpu', {}):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(exc, match=match):
             Evaluator(torch.nn.Identity(), whole, device='cpu')
 
 
@@ -200,6 +204,8 @@ def test_tpu_keys_the_port_takes():
     pconfig.check_tpu_section(pconfig.create_default_config())
     pconfig.check_tpu_section({'tpu': {'mesh_shape': 'auto', 'remat': False,
                                        'precision': 'fp32'}})
+    for shape in ({'data': 1}, {'data': 4}, {'data': 2, 'model': 1}):
+        pconfig.check_tpu_section({'tpu': {'mesh_shape': shape}})
     model = create_model({'model': {'type': 'segformer', 'num_classes': 3},
                           'tpu': {'precision': 'fp32'}, 'seed': 3},
                          device='cpu')

@@ -265,8 +265,11 @@ def test_empty_sweep_matches_jax(members):
 
 def test_evaluator_config_errors_and_device(members):
     make, _, _ = members
-    with pytest.raises(NotImplementedError, match='item 7'):
-        evaluator.Evaluator(make(), {'evaluation': {'spatial_tiling': 'on'}},
+    ev = evaluator.Evaluator(make(), {'evaluation': {'spatial_tiling': 'on'}},
+                             device='cpu')
+    assert ev.use_tiling(32, 64) and ev.tiles(32, 64) == (32, 64)
+    with pytest.raises(ValueError, match='spatial_tiling'):
+        evaluator.Evaluator(make(), {'evaluation': {'spatial_tiling': 'x'}},
                             device='cpu')
     with pytest.raises(ValueError, match='auroc_mode'):
         evaluator.Evaluator(make(), {}, auroc_mode='sorted', device='cpu')

@@ -494,9 +494,12 @@ def test_trainer_device_and_tpu_keys(tmp_path):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             ptrainer.AdverseWeatherTrainer(_Pixelwise(), TRAIN, VAL,
                                            dict(CONFIG, device='auto'), **kw)
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(NotImplementedError, match='next slice'):
         ptrainer.AdverseWeatherTrainer(
             _Pixelwise(), TRAIN, VAL,
-            dict(CONFIG, tpu={'mesh_shape': {'data': 1, 'model': 1}}), **kw)
-    pt = ptrainer.AdverseWeatherTrainer(_Pixelwise(), TRAIN, VAL, CONFIG, **kw)
+            dict(CONFIG, tpu={'mesh_shape': {'data': 1, 'model': 2}}), **kw)
+    pt = ptrainer.AdverseWeatherTrainer(
+        _Pixelwise(), TRAIN, VAL,
+        dict(CONFIG, tpu={'mesh_shape': {'data': 1, 'model': 1}}), **kw)
     assert pt.device == torch.device('cpu')
+    assert (pt.mesh.rank, pt.mesh.size) == (0, 1)

@@ -274,15 +274,13 @@ def test_augmentation_composition(weather):
 # counterpart for (each named in the facade's docstring), and one renamed.
 NO_COUNTERPART = {
     '': {'_JAX_AVAILABLE', '_TORCH_AVAILABLE'},
-    'core': {'DATA_AXIS', 'MODEL_AXIS', 'create_mesh', 'batch_sharding',
-             'replicated_sharding', 'shard_batch', 'replicate',
-             'pad_batch_to_multiple', 'init_distributed', 'per_sample_keys',
+    'core': {'batch_sharding', 'replicated_sharding', 'per_sample_keys',
              'setup_compilation_cache'},
     'train': {'TrainState'},
 }
 RENAMED = {'ops': {'sr_attention_reference': 'sr_attention_plain'}}
 FACADES = ('', 'core', 'data', 'eval', 'losses', 'metrics', 'models', 'ops',
-           'train', 'utils', 'weather')
+           'parallel', 'train', 'utils', 'weather')
 
 
 @pytest.mark.parametrize('sub', FACADES, ids=[s or 'top' for s in FACADES])
