@@ -10,10 +10,14 @@ no card and no such request it raises.
     python -m awsegbench_torch.cli.train --config configs/default.yaml \
         --output-dir runs/x
 
-Under ``torchrun --nproc_per_node N`` each process is one rank of the data
-mesh: rank r takes ``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo
-with ``--device cpu``; the train loader gives each rank its rows of every
-global batch, and rank 0 alone writes the checkpoints and results.
+Under ``torchrun --nproc_per_node N`` each process is one rank of the
+mesh of ``tpu.mesh_shape`` (``core/mesh.py``): rank r takes
+``cuda:LOCAL_RANK`` over NCCL, or the CPU over gloo with ``--device
+cpu``; the train loader gives each rank its rows of every global batch
+over the data axis, and world rank 0 alone writes the checkpoints and
+results. With ``tpu.mesh_shape: {data: d, model: m}`` (``N = d·m``) the
+model's wide parameters are sharded over the ``m`` ranks of each model
+group (tensor parallelism, ``parallel/tensor.py``).
 
     torchrun --nproc_per_node 2 -m awsegbench_torch.cli.train \
         --config configs/default.yaml --output-dir runs/x --device cpu
@@ -32,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch.distributed as dist
 
-from ..core.mesh import init_distributed
+from ..core.mesh import Mesh, create_mesh, init_distributed
 from ..data.dataset import CityscapesKITTIDataset
 from ..data.pipeline import BatchIterator
 from ..models.factory import count_parameters, create_model
@@ -81,12 +85,12 @@ def leave_world() -> None:
         dist.destroy_process_group()
 
 
-def create_datasets_and_loaders(config: Config):
-    """The train and val datasets and their loaders. With a process group
-    of more than one rank up, the train loader gives each rank its rows of
-    every global batch (when the batch divides over the ranks); the val
-    loader gives every rank the global batch, which the trainer pads and
-    splits."""
+def create_datasets_and_loaders(config: Config, mesh: Mesh | None = None):
+    """The train and val datasets and their loaders. With a ``mesh`` whose
+    data axis is above one rank, the train loader gives each rank its rows
+    of every global batch (when the batch divides over the data axis);
+    the val loader gives every rank the global batch, which the trainer
+    pads and splits."""
     data_cfg = config.get('data', {}) or {}
     common = dict(
         data_root=data_cfg.get('data_root', 'data'),
@@ -103,9 +107,9 @@ def create_datasets_and_loaders(config: Config):
 
     batch_size = config.get('training.batch_size', 2)
     num_workers = config.get('training.num_workers', 4)
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    process = (dict(process_index=dist.get_rank(), process_count=world)
-               if world > 1 and batch_size % world == 0 else {})
+    data = (mesh if mesh is not None else create_mesh()).data
+    process = (dict(process_index=data.rank, process_count=data.size)
+               if data.size > 1 and batch_size % data.size == 0 else {})
     train_loader = BatchIterator(train_ds, batch_size=batch_size, shuffle=True,
                                  seed=config.get('seed', 42),
                                  num_threads=num_workers, **process)
@@ -170,10 +174,11 @@ def _train(args, config: Config, device: str, output_dir: Path,
     except Exception as e:
         logger.error(f"Error creating model: {e}")
         sys.exit(1)
+    mesh = create_mesh(mesh_shape=config.get('tpu.mesh_shape', 'auto'))
     # Missing dataset files are handled inside the dataset itself
     # (synthetic fallback); any exception here is a real error.
     try:
-        train_loader, val_loader = create_datasets_and_loaders(config)
+        train_loader, val_loader = create_datasets_and_loaders(config, mesh)
     except Exception as e:
         logger.error(f"Error creating datasets: {e}")
         sys.exit(1)
@@ -186,6 +191,7 @@ def _train(args, config: Config, device: str, output_dir: Path,
         device=device,
         checkpoint_dir=str(checkpoint_dir),
         log_dir=str(log_dir),
+        mesh=mesh,
     )
     logger.info(f"Model parameters: {count_parameters(model):,} total")
 

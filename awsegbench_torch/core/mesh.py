@@ -1,19 +1,25 @@
-"""The data mesh over ``torch.distributed`` (counterpart of
+"""The device mesh over ``torch.distributed`` (counterpart of
 ``awsegbench/core/mesh.py``).
 
 JAX drives every device of a host from one process and shards arrays over
 a ``Mesh``; PyTorch runs one process per device (``torchrun``) and joins
 them in a process group. The port takes PyTorch's idiom: a
-:class:`DataMesh` is this process's rank and the world's size along the
-one ``'data'`` axis, and every batch-wide quantity is reduced across the
-ranks with an explicit collective (``parallel/collectives.py``). With no
-process group up, the mesh is the one process alone (rank 0 of 1), and no
-collective runs.
+:class:`DataMesh` is this process's rank and the size of one mesh axis
+(by default ``'data'``) over a process group, and every batch-wide
+quantity is reduced across its ranks with an explicit collective
+(``parallel/collectives.py``). With no process group up, the mesh is the
+one process alone (rank 0 of 1), and no collective runs.
 
-Only the data axis is ported. A ``'model'`` axis above 1 (JAX's tensor
-parallelism, ``tp_param_shardings`` and ``opt_state_shardings``) raises:
-in torch it means weights sharded as DTensors, which the kernels that take
-raw device pointers (K3–K10) cannot read without a design of their own.
+A ``{'data': d, 'model': m}`` mesh with ``m > 1`` is a :class:`TPMesh`:
+the world's ranks laid out as JAX lays out its devices,
+``np.arange(world).reshape(d, m)`` (world rank = data index·m + model
+index), with one process group per row (the ``model`` axis: the ranks
+that share the data index) and one per column (the ``data`` axis: the
+ranks that share the model index). Its ``.data`` is the ``DataMesh`` every
+data-parallel piece takes (batch rows, tiles, the loader's slice, the
+reductions of the loss, BN and the sweep's counts); its ``.model`` is the
+group that tensor parallelism (``parallel/tensor.py``) shards parameters
+over, where :func:`tp_param_shardings` says, JAX's rule in torch's layout.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,31 +38,78 @@ logger = logging.getLogger(__name__)
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
 
-MODEL_AXIS_MESSAGE = (
-    "a 'model' mesh axis above 1 (tensor parallelism) is not ported: it "
-    'waits for the next slice of the multi-device port (ROADMAP.md §1), '
-    'weights sharded as DTensors around the kernels')
-
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """This process's place on the 1-D ``('data',)`` mesh: its ``rank``
-    among ``size`` ranks of the process ``group`` (``None``: the default
-    group, or no group when ``size`` is 1)."""
+    """This process's place on one mesh axis (``axis``, by default
+    ``'data'``): its ``rank`` among ``size`` ranks of the process ``group``
+    (``None``: the default group, or no group when ``size`` is 1). As the
+    1-D ``('data',)`` mesh it is its own ``.data`` and has no model
+    axis."""
 
     rank: int = 0
     size: int = 1
     group: Any = None
+    axis: str = DATA_AXIS
 
-    axis_names = (DATA_AXIS,)
+    has_model_axis = False
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return (self.axis,)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.size}
+        return {self.axis: self.size}
 
     @property
     def backend(self) -> str | None:
         return dist.get_backend(self.group) if self.size > 1 else None
+
+    @property
+    def data(self) -> 'DataMesh':
+        return self
+
+    @property
+    def model(self) -> 'DataMesh':
+        return DataMesh(axis=MODEL_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPMesh:
+    """The 2-D ``('data', 'model')`` mesh: ``data`` and ``model`` are this
+    process's places on the two axes (their groups are its column and its
+    row of the rank grid); ``rank`` and ``size`` are the world's, and
+    ``group`` (``None``) the world's group, so that :func:`replicate` and
+    the world's barriers take the mesh as they take a ``DataMesh``."""
+
+    data: DataMesh
+    model: DataMesh
+    rank: int
+    size: int
+    group: Any = None
+
+    axis_names = (DATA_AXIS, MODEL_AXIS)
+
+    @property
+    def has_model_axis(self) -> bool:
+        return self.model.size > 1
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {DATA_AXIS: self.data.size, MODEL_AXIS: self.model.size}
+
+    @property
+    def backend(self) -> str | None:
+        return dist.get_backend() if self.size > 1 else None
+
+
+Mesh = Union[DataMesh, TPMesh]
+
+
+def has_model_axis(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` has a ``'model'`` axis above 1 (JAX's name)."""
+    return mesh is not None and bool(mesh.has_model_axis)
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -98,14 +151,19 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def create_mesh(devices: Optional[Sequence[Any]] = None,
-                mesh_shape: Any = 'auto') -> DataMesh:
-    """The 1-D ``('data',)`` mesh over the world.
+                mesh_shape: Any = 'auto') -> Mesh:
+    """The mesh over the world.
 
     ``devices`` (one entry per rank) may name the mesh's extent, which
-    must be the world's size. ``mesh_shape`` is ``'auto'`` or a dict such
-    as ``{'data': n}``, whose size must equal the world's (``ValueError``
-    otherwise, as in JAX); a ``'model'`` axis above 1 raises
-    ``NotImplementedError``."""
+    must be the world's size. ``mesh_shape`` is ``'auto'`` (the 1-D
+    ``('data',)`` mesh) or a dict such as ``{'data': d, 'model': m}``,
+    whose size must equal the world's (``ValueError`` otherwise, as in
+    JAX). Without a ``'model'`` axis above 1 it is the 1-D
+    :class:`DataMesh` over the world; with one, a :class:`TPMesh` whose
+    rank grid is the world reshaped in the dict's axis order, as JAX
+    reshapes its devices. Every rank creates every row's and every
+    column's process group, in the same order (``dist.new_group`` is
+    collective)."""
     up = dist.is_available() and dist.is_initialized()
     rank = dist.get_rank() if up else 0
     world = dist.get_world_size() if up else 1
@@ -120,14 +178,28 @@ def create_mesh(devices: Optional[Sequence[Any]] = None,
     if unknown:
         raise ValueError(f'mesh_shape {mesh_shape}: unknown axes '
                          f'{sorted(unknown)}')
-    if int(mesh_shape.get(MODEL_AXIS, 1)) > 1:
-        raise NotImplementedError(f'mesh_shape {mesh_shape}: '
-                                  f'{MODEL_AXIS_MESSAGE}')
-    total = int(np.prod([int(v) for v in mesh_shape.values()]))
+    sizes = [int(v) for v in mesh_shape.values()]
+    total = int(np.prod(sizes))
     if total != world:
         raise ValueError(f'mesh_shape {mesh_shape} needs {total} devices, '
                          f'have {world}')
-    return DataMesh(rank, world)
+    m = int(mesh_shape.get(MODEL_AXIS, 1))
+    if m == 1:
+        return DataMesh(rank, world)
+    names = list(mesh_shape)
+    grid = np.arange(world).reshape(sizes)      # JAX's reshape of devices
+    grid = (np.moveaxis(grid, names.index(DATA_AXIS), 0)
+            if DATA_AXIS in names else grid[None]).reshape(-1, m)
+    # grid[i, j]: the world rank at data index i, model index j
+    meshes = {}
+    for axis, lines in ((DATA_AXIS, grid.T), (MODEL_AXIS, grid)):
+        for line in lines:                 # every rank, every group, in order
+            ranks = [int(r) for r in line]
+            group = dist.new_group(ranks) if len(ranks) > 1 else None
+            if rank in ranks:
+                meshes[axis] = DataMesh(ranks.index(rank), len(ranks),
+                                        group, axis)
+    return TPMesh(meshes[DATA_AXIS], meshes[MODEL_AXIS], rank, world)
 
 
 def _map(fn, tree):
@@ -138,17 +210,21 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def mesh_rows(mesh: DataMesh, n: int) -> slice:
-    """The rows of a global batch of ``n`` (a multiple of the mesh's size)
-    that ``mesh``'s rank holds."""
+def mesh_rows(mesh: Mesh, n: int) -> slice:
+    """The rows of a global batch of ``n`` (a multiple of the data axis's
+    size) that ``mesh``'s rank holds on the data axis."""
+    mesh = mesh.data
     b = n // mesh.size
     return slice(mesh.rank * b, (mesh.rank + 1) * b)
 
 
-def shard_batch(batch: Any, mesh: DataMesh) -> Any:
+def shard_batch(batch: Any, mesh: Mesh) -> Any:
     """This rank's rows of a global batch (a tree of arrays or tensors whose
-    leading axis is the batch, which must divide by the mesh's size):
-    rows ``[rank·b, (rank + 1)·b)`` for ``b = B / size``."""
+    leading axis is the batch, which must divide by the data axis's size):
+    rows ``[rank·b, (rank + 1)·b)`` for ``b = B / size`` on the data axis
+    (the ranks of one data index hold the same rows)."""
+    mesh = mesh.data
+
     def rows(x):
         n = x.shape[0]
         if n % mesh.size:
@@ -159,10 +235,11 @@ def shard_batch(batch: Any, mesh: DataMesh) -> Any:
     return _map(rows, batch)
 
 
-def replicate(tree: Any, mesh: DataMesh) -> Any:
-    """Rank 0's values on every rank: each tensor of ``tree`` (a module's
-    parameters and buffers, or a tree of tensors) is broadcast from rank 0
-    in place. Returns ``tree``."""
+def replicate(tree: Any, mesh: Mesh) -> Any:
+    """Rank 0's values on every rank of the mesh (the world's, on a
+    ``TPMesh``): each tensor of ``tree`` (a module's parameters and
+    buffers, or a tree of tensors) is broadcast from rank 0 in place.
+    Returns ``tree``."""
     if mesh.size <= 1:
         return tree
     from ..parallel.collectives import broadcast_
@@ -193,3 +270,65 @@ def pad_batch_to_multiple(batch: Any, multiple: int) -> tuple[Any, int]:
         widths = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
         return np.pad(np.asarray(x), widths, mode='edge')
     return _map(_pad, batch), n
+
+
+# ---------------------------------------------------------------------------
+# the model axis's layout (JAX's tp_param_shardings, in torch's layout)
+# ---------------------------------------------------------------------------
+
+def tp_param_shardings(model: torch.nn.Module, mesh: Mesh,
+                       min_features: int = 64) -> dict[str, Optional[int]]:
+    """The tensor-parallel layout of ``model``'s parameters on ``mesh``'s
+    model axis (of size ``m``): ``{parameter name: the dim sharded over
+    the model axis, or None for replicated}``, names as
+    ``named_parameters()`` gives them (one process's names, which
+    ``convert.flax_to_torch`` maps one to one onto Flax paths).
+
+    JAX's rule (``awsegbench/core/mesh.py::tp_param_shardings``) read in
+    torch's layout: a ≥2-D ``weight`` (a conv's OIHW, a Linear's [out,
+    in]; JAX's ``kernel`` with its output features last) is sharded on
+    dim 0 when its output features divide by ``m`` and number at least
+    ``min_features``; a 1-D ``weight`` or ``bias`` (JAX's ``scale`` and
+    ``bias``) on the same test of its length. Everything else stays
+    replicated: the ensemble's mixing weights and temperature and the
+    narrow leaves. BN's running statistics are buffers, not parameters,
+    and stay replicated as JAX's ``batch_stats`` do."""
+    m = mesh.model.size
+
+    def rule(name: str, p: torch.Tensor) -> Optional[int]:
+        leaf = name.rsplit('.', 1)[-1]
+        if p.ndim == 0 or leaf not in ('weight', 'bias') \
+                or leaf == 'bias' and p.ndim != 1:
+            return None
+        out = p.shape[0]
+        return 0 if out % m == 0 and out >= min_features else None
+    return {name: rule(name, p) for name, p in model.named_parameters()}
+
+
+def opt_state_shardings(optimizer: torch.optim.Optimizer,
+                        param_layout: dict[str, Optional[int]],
+                        names: Sequence[str]
+                        ) -> dict[str, dict[str, Optional[int]]]:
+    """The layout of a torch optimiser's state (JAX's
+    ``opt_state_shardings``): ``{parameter name: {state key: dim or
+    None}}`` for the parameters of ``optimizer``, named by ``names`` in
+    its parameters' order. A state tensor with its parameter's shape
+    (AdamW's two moments) takes the parameter's layout; the rest (the
+    step count) stays replicated."""
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    out = {}
+    for name, p in zip(names, params):
+        out[name] = {k: (param_layout.get(name) if torch.is_tensor(v)
+                         and v.shape == p.shape and v.ndim else None)
+                     for k, v in optimizer.state.get(p, {}).items()}
+    return out
+
+
+def param_shardings(model: torch.nn.Module, mesh: Mesh,
+                    min_features: int = 64) -> dict[str, Optional[int]]:
+    """Every parameter replicated (None) on a mesh without a model axis;
+    :func:`tp_param_shardings` on one that has one."""
+    if has_model_axis(mesh):
+        return tp_param_shardings(model, mesh, min_features)
+    return {name: None for name, _ in model.named_parameters()}
+

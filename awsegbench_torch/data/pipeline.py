@@ -202,7 +202,9 @@ def create_dataloader(dataset, batch_size: int = 8, shuffle: bool = True,
     process loads its rows of every global batch (``process_index`` and
     ``process_count`` from the group's rank and size) unless
     ``process_count`` is given, as the JAX factory reads
-    ``jax.process_*``."""
+    ``jax.process_*``. On a mesh with a model axis the rows go over its
+    data axis: give ``process_index=mesh.data.rank`` and
+    ``process_count=mesh.data.size``."""
     if 'process_count' not in kwargs and dist.is_available() \
             and dist.is_initialized() and dist.get_world_size() > 1:
         kwargs['process_index'] = dist.get_rank()

@@ -34,7 +34,11 @@ mode's AUROC is :func:`~awsegbench_torch.metrics.disagreement.
 auroc_exact_sharded` of every rank's buffer. With spatial tiling
 (``evaluation.spatial_tiling``) one image's tiles are spread over the
 ranks instead (``parallel.collectives.tiled_forward``); each rank then
-accumulates its rows of the stitched outputs.
+accumulates its rows of the stitched outputs. On a mesh with a model axis
+(``core.mesh.TPMesh``) the model's weights are full on every rank, as in
+the JAX sweep, and the rows, the tiles and the sums go over the data axis
+(``mesh.data``): the ranks of one model group sweep the same rows, and a
+sum over the world would count each row once per model rank.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..core.precision import get_policy
-from ..core.mesh import DataMesh, create_mesh, mesh_rows
+from ..core.mesh import Mesh, create_mesh, mesh_rows
 from ..data.pipeline import prepare_batch
 from ..metrics.calibration import ece_bin_update_per_weather, ece_from_bins
 from ..metrics.disagreement import (auroc_exact_sharded,
@@ -98,7 +102,7 @@ class Evaluator:
                  num_bins: int = 15, collect_exact_auroc: bool = False,
                  auroc_mode: str | None = None,
                  device: str | torch.device = 'cuda',
-                 mesh: DataMesh | None = None) -> None:
+                 mesh: Mesh | None = None) -> None:
         cfg = (config.to_dict() if hasattr(config, 'to_dict')
                else dict(config or {}))
         check_tpu_section(cfg)
@@ -133,13 +137,13 @@ class Evaluator:
         if self.spatial_tiling == 'on':
             return True
         if self.spatial_tiling == 'auto':
-            return height * width >= 2048 * 1024 and self.mesh.size > 1
+            return height * width >= 2048 * 1024 and self.mesh.data.size > 1
         return False
 
     def tiles(self, height: int, width: int) -> tuple[int, int]:
         """The tile size for an image of ``height`` × ``width``."""
         if self.tile_size == 'auto':
-            return choose_tile_grid(height, width, self.mesh.size)
+            return choose_tile_grid(height, width, self.mesh.data.size)
         return tuple(self.tile_size)
 
     def init_acc(self, capacity: int = 0) -> dict[str, Any]:
@@ -188,7 +192,7 @@ class Evaluator:
             return (self.model(tiles, tile_info=info[0]) if exact
                     else self.model(tiles))
         outs = [tiled_forward(apply, None, img, th, tw, self.tile_halo,
-                              mesh=self.mesh, with_tile_info=exact)
+                              mesh=self.mesh.data, with_tile_info=exact)
                 for img in x]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
@@ -269,7 +273,7 @@ class Evaluator:
         b, h, w = images.shape[:3]
         if draws is None:
             draws = draw_corruption(wids, h, w, generator)
-        pad = (-b) % self.mesh.size
+        pad = (-b) % self.mesh.data.size
 
         def edge(t):
             return torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad \
@@ -318,7 +322,7 @@ class Evaluator:
                             if self.auroc_mode == 'exact' else 0)
                 acc = self.init_acc(capacity)
             self.accumulate(acc, out, labels, wids,
-                            mask if self.mesh.size > 1 else None)
+                            mask if self.mesh.data.size > 1 else None)
         if acc is None:
             acc = self.init_acc()
         exact_auroc = None
@@ -328,15 +332,15 @@ class Evaluator:
             valid = errors >= 0
             exact_auroc = float(auroc_exact_sharded(
                 acc['scores'][:n], errors.float() * valid, valid.float(),
-                self.mesh))
+                self.mesh.data))
         elif self.auroc_mode == 'exact_host' and acc['host_scores']:
             s = torch.cat(acc['host_scores'])
             e = torch.cat(acc['host_errors'])
             keep = e >= 0
             exact_auroc = float(auroc_exact_sharded(s[keep], e[keep], None,
-                                                    self.mesh))
+                                                    self.mesh.data))
         totals = psum_tree({k: acc[k] for k in ('cm', 'ece', 'auroc_hist')},
-                           self.mesh)
+                           self.mesh.data)
         cms, ece, hist = (totals[k].cpu() for k in ('cm', 'ece',
                                                     'auroc_hist'))
         elapsed = time.time() - t0

@@ -27,6 +27,11 @@ Parity notes:
   BN's train-mode statistics and the fused heads' batch sums are the
   global batch's, summed over the ranks (padded rows count, as in the JAX
   step), and the dropout hashes each row by its global index.
+* Under tensor parallelism (``parallel/tensor.py``) every parameter
+  these heads hand to a kernel (``hwio(...)``, the biases, BN's scale and
+  bias) is read gathered to full size, so K2 and K7–K10 launch exactly as
+  on one process; the dropout seeds read the data axis's rows, the same
+  on every rank of the model group.
 * The heads' dropout (rate 0.1) is the counter-hash mask of
   ``ops/headkernels_train.py`` on every path, drawn from an int32 seed per
   head; the JAX package's unfused paths use Flax ``nn.Dropout`` there.
@@ -101,10 +106,13 @@ class BatchNorm(nn.Module):
     def set_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Fold f32 batch statistics into the running ones (Flax's update,
         also ``BatchNormParams(set_stats=...)`` for the fused head)."""
-        m, cdt = self.momentum, self.weight.dtype
+        # the scale's dtype and device, read without gathering a scale
+        # sharded over the model axis (parallel/tensor.py)
+        w = self._parameters['weight']
+        m, cdt = self.momentum, w.dtype
         # JAX casts the Python momentum to the stats' dtype before the
         # product (a weak-typed scalar); torch would multiply in f32
-        m_c = torch.tensor(m, dtype=cdt, device=self.weight.device)
+        m_c = torch.tensor(m, dtype=cdt, device=w.device)
         for buf, new in ((self.running_mean, mean), (self.running_var, var)):
             buf.copy_(buf.to(cdt) * m_c + (1.0 - m) * new.detach())
 

@@ -1,5 +1,8 @@
-"""The data-parallel communication layer: collectives over the data mesh
-and halo-exact spatial tiling (counterpart of ``awsegbench/parallel``)."""
+"""The communication layer (counterpart of ``awsegbench/parallel``):
+collectives over the data mesh and halo-exact spatial tiling
+(``collectives.py``), and tensor parallelism over the model axis
+(``tensor.py``: ``shard_model_`` and the model group's collectives, which
+JAX's GSPMD inserts by itself)."""
 
 from .collectives import (
     all_gather_batch,

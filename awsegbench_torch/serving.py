@@ -74,9 +74,16 @@ def build_serving_fn(model: nn.Module, *, precision: str = 'bf16',
     it is), frozen, eval mode, normalize on the model's device, logits
     returned in f32. No weather corruption: serving sees real images.
     The frozen weights keep the attention and the seg head on their
-    custom ops (no gradient is asked for)."""
+    custom ops (no gradient is asked for). A model sharded over a mesh's
+    model axis raises: serving has no model axis (nor has JAX's)."""
     from .core.precision import get_policy
+    from .parallel.tensor import is_sharded
 
+    if is_sharded(model):
+        raise ValueError('serving takes a whole model, not one sharded over '
+                         "a mesh's model axis: load the full checkpoint "
+                         'into an unsharded model (cli.evaluate.load_model) '
+                         'and export that')
     policy = get_policy(precision)
     with torch.no_grad():
         cast = {name: t.detach().clone() for name, t in

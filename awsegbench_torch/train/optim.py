@@ -17,6 +17,13 @@ semantics in :class:`Optimizer`, which clips first:
   (the fused seg head's conv bias) gets a zero gradient and still decays;
   torch would skip it.
 
+Under tensor parallelism (``parallel/tensor.py``) a parameter sharded over
+the model axis holds its slice, and so do its gradient and its moments:
+the optimiser steps on the slices. The global norm counts each element
+once: the replicated leaves' squares on this rank, plus the shards'
+squares summed over the model group. ``state_dict`` and
+``load_state_dict`` speak one process's format (every moment full size).
+
 The three epoch schedulers are pure host code, as in the JAX package.
 """
 
@@ -27,13 +34,31 @@ from typing import Any, Iterable
 
 import torch
 
+from ..parallel.collectives import all_reduce_
+from ..parallel.tensor import (full_optimizer_state_dict,
+                               load_full_optimizer_state_dict_, shard_of)
+
+
+def _sum_sq(grads) -> torch.Tensor:
+    return sum(torch.sum(g.float() * g.float()) for g in grads)
+
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
-    """``optax.clip_by_global_norm`` on ``grads`` in place (no host sync)."""
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         shards: list[bool] | None = None,
+                         model_mesh=None) -> None:
+    """``optax.clip_by_global_norm`` on ``grads`` in place (no host sync).
+    Where ``shards[i]`` is true, ``grads[i]`` is this rank's slice of a
+    gradient sharded over ``model_mesh``: its squares are summed over the
+    model group, the replicated gradients' squares counted once."""
     if not grads:
         return
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    shards = shards or [False] * len(grads)
+    sq = _sum_sq(g for g, s in zip(grads, shards) if not s)
+    if any(shards):
+        sq = sq + all_reduce_(_sum_sq(g for g, s in zip(grads, shards) if s),
+                              model_mesh)
+    norm = torch.sqrt(sq)
     trigger = norm < max_norm
     for g in grads:
         g.copy_(torch.where(trigger, g, g / norm.to(g.dtype) * max_norm))
@@ -60,15 +85,23 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.grad_clip and self.grad_clip > 0:
+            shards = [shard_of(p) for p in self.params]
+            mesh = next((s[1] for s in shards if s is not None), None)
             clip_by_global_norm_([p.grad for p in self.params],
-                                 self.grad_clip)
+                                 self.grad_clip,
+                                 [s is not None for s in shards], mesh)
         self.inner.step()
 
     def state_dict(self) -> dict[str, Any]:
-        return self.inner.state_dict()
+        """The torch optimiser's state dict, every moment of a sharded
+        parameter gathered to full size (a collective over the model
+        group)."""
+        return full_optimizer_state_dict(self.inner)
 
     def load_state_dict(self, state: dict[str, Any]) -> None:
-        self.inner.load_state_dict(state)
+        """Loads one process's state dict (a sharded parameter's moments
+        take this rank's slice)."""
+        load_full_optimizer_state_dict_(self.inner, state)
 
     @property
     def learning_rate(self) -> float:

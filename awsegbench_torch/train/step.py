@@ -19,10 +19,12 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
-from ..core.mesh import DataMesh, create_mesh, mesh_rows, replicate
+from ..core.mesh import (Mesh, create_mesh, has_model_axis, mesh_rows,
+                         replicate, tp_param_shardings)
 from ..core.precision import get_policy
 from ..data.pipeline import draw_augment, prepare_batch
 from ..losses.fog_density import FogDensityAwareLoss
+from ..parallel.tensor import is_sharded, shard_model_
 from ..weather.corruption import draw_corruption
 from .optim import Optimizer, create_optimizer
 from .trainer import (draw_dropout_seed, fog_density_from_weather,
@@ -56,20 +58,34 @@ class TrainStep:
     the same global batch and draws as on one device: each rank keeps its
     rows, BN's statistics and the loss's means are the global batch's,
     and the gradients are summed over the ranks before the clip
-    (``trainer.train_step``)."""
+    (``trainer.train_step``).
+
+    Tensor parallelism: on a mesh with a model axis above 1
+    (``core.mesh.TPMesh``), after that broadcast over the world, the
+    parameters that ``core.mesh.tp_param_shardings`` picks at
+    ``tp_min_features`` are sharded over the model group in place
+    (``parallel.tensor.shard_model_``; an ``optimizer`` built before on
+    the model's parameters keeps them). A model sharded already is taken
+    as it is. The batch and the draws go over the data axis only: the
+    ranks of one model group take the same rows."""
 
     def __init__(self, model: nn.Module, optimizer: Optimizer | None = None,
                  precision: str = 'bf16',
                  device: str | torch.device = 'cuda',
                  loss_fn: Callable | None = None,
                  apply_augmentation: bool = True,
-                 mesh: DataMesh | None = None) -> None:
+                 mesh: Mesh | None = None,
+                 tp_min_features: int = 64) -> None:
         self.device = resolve_device(device)
         self.policy = get_policy(precision)
         self.model = model.to(device=self.device,
                               dtype=self.policy.param_dtype).train()
         self.mesh = mesh if mesh is not None else create_mesh()
-        replicate(self.model, self.mesh)
+        if not is_sharded(self.model):
+            replicate(self.model, self.mesh)
+            if has_model_axis(self.mesh):
+                shard_model_(self.model, self.mesh, tp_param_shardings(
+                    self.model, self.mesh, tp_min_features))
         self.include_depth = getattr(model, 'include_depth', False)
         self.apply_augmentation = apply_augmentation
         self.optimizer = optimizer or create_optimizer(
@@ -86,7 +102,7 @@ class TrainStep:
         of the mesh by repeating its last row (the padded rows leave the
         loss through ``sample_mask``, as in the JAX trainer); returns them,
         their mask and the padded global batch's size."""
-        n = self.mesh.size
+        n = self.mesh.data.size
         b = images_u8.shape[0]
         pad = (-b) % n
         if pad:
@@ -130,7 +146,7 @@ class TrainStep:
         images_u8, labels = images_u8.to(dev), labels.to(dev)
         weather_ids = weather_ids.to(dev)
         if sharded:
-            nb = images_u8.shape[0] * self.mesh.size
+            nb = images_u8.shape[0] * self.mesh.data.size
         else:
             images_u8, labels, weather_ids, sample_mask, nb = self._local(
                 images_u8, labels, weather_ids, sample_mask)

@@ -32,6 +32,17 @@ scalar names, and these of its behaviours:
   validation's confusion matrices are summed over the ranks
   (``psum_tree``) at the epoch's end; rank 0 alone writes checkpoints,
   TensorBoard and MLflow, and the others wait for it at a barrier;
+* tensor parallelism: a ``tpu.mesh_shape`` of ``{'data': d, 'model':
+  m}`` with ``m > 1`` runs ``d·m`` ranks; every rank builds the full
+  model from the seed, world rank 0's weights are broadcast over the
+  world, and the parameters that ``core.mesh.tp_param_shardings`` picks
+  (``tpu.tp_min_features``, default 64, as JAX reads it) are sharded over
+  the model group (``parallel/tensor.py``); batches, loss sums and
+  confusion matrices go over the data axis (``mesh.data``). Checkpoints
+  hold one process's full tensors and names, gathered before world rank
+  0 writes them, so a checkpoint moves between meshes both ways;
+  ``EarlyStopping``'s snapshot and restore keep each rank's slices, as
+  JAX's ``_shard_like`` keeps the layout;
 * two quirks of JAX's resume: ``train()`` loops from epoch 0 after
   ``load_checkpoint``, and ``global_step`` is not restored.
 
@@ -66,6 +77,8 @@ from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
                            iou_from_confusion)
 from ..models.factory import init_model_variables
 from ..parallel.collectives import all_reduce_, data_parallel, psum_tree
+from ..parallel.tensor import (average_replicated_, full_state_dict,
+                               load_full_state_dict_)
 from ..utils.config import check_tpu_section, get_device_config
 from ..utils.profiling import ThroughputMeter, trace
 from ..weather.corruption import WEATHER_CONDITIONS
@@ -166,22 +179,28 @@ def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
     the loss dict, detached; the gradients stay in the parameters'
     ``.grad``.
 
-    With a ``mesh`` above one rank, the batch is this rank's rows of the
-    global batch. The forward and the loss run under
-    ``parallel.collectives.data_parallel``, so the loss is the global
-    batch's on every rank. The gradient convention: each rank backprops
-    its share ``total_loss / world``; the all-reduces inside the forward
-    sum their gradients over the ranks in the backward, so the ranks'
-    parameter gradients *sum* (not average) to the global batch's
-    gradient, and :func:`all_reduce_grads` sums them before the clip. The
-    global-norm clip and AdamW then see the same gradients on every rank."""
+    With a ``mesh`` whose data axis is above one rank, the batch is this
+    rank's rows of the global batch. The forward and the loss run under
+    ``parallel.collectives.data_parallel`` over the data axis, so the loss
+    is the global batch's on every rank. The gradient convention: each
+    rank backprops its share ``total_loss / d`` (``d`` the data axis's
+    size); the all-reduces inside the forward sum their gradients over the
+    data ranks in the backward, so their parameter gradients *sum* (not
+    average) to the global batch's gradient, and :func:`all_reduce_grads`
+    sums them over the data group before the clip. The global-norm clip
+    and AdamW then see the same gradients on every data rank. A model
+    sharded over the mesh's model axis holds each sharded gradient as its
+    slice; the replicated gradients and BN statistics are averaged over
+    the model group (``parallel.tensor.average_replicated_``), so every
+    rank steps the same replicated weights."""
     if not model.training:
         raise ValueError('train_step: the model is not in train mode')
     kwargs = {'seed': seed, 'aspp_mask': aspp_mask, 'generator': generator,
               **(depth_seeds or {})}
     takes = forward_params(model)
-    world = mesh.size if mesh is not None else 1
-    with data_parallel(mesh):
+    data = mesh.data if mesh is not None else None
+    world = data.size if data is not None else 1
+    with data_parallel(data):
         outputs = functional_call(
             model, policy.cast_to_compute(model),
             (image.to(policy.compute_dtype),),
@@ -192,7 +211,9 @@ def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
         total = loss['total_loss']
         (total / world if world > 1 else total).backward()
     if world > 1:
-        all_reduce_grads(optimizer.params, mesh)
+        all_reduce_grads(optimizer.params, data)
+    if mesh is not None:
+        average_replicated_(model, mesh)
     optimizer.step()
     return {k: v.detach() for k, v in loss.items()}
 
@@ -213,7 +234,8 @@ class EarlyStopping:
     def __call__(self, val_loss: float, model: nn.Module
                  ) -> tuple[bool, nn.Module]:
         """Returns (should_stop, the model, its best weights restored in
-        place when stopping)."""
+        place when stopping). A model sharded over the model axis is
+        snapshot and restored as this rank's slices."""
         if val_loss < self.best_loss - self.min_delta:
             self.best_loss = val_loss
             self.counter = 0
@@ -276,7 +298,7 @@ class AdverseWeatherTrainer:
         check_tpu_section(config)
         self.mesh = mesh if mesh is not None else create_mesh(
             mesh_shape=(config.get('tpu') or {}).get('mesh_shape', 'auto'))
-        self.is_main = self.mesh.rank == 0
+        self.is_main = self.mesh.rank == 0      # world rank 0
         self.device = resolve_device(
             device if device is not None
             else get_device_config(config.get('device', 'auto')))
@@ -300,7 +322,8 @@ class AdverseWeatherTrainer:
         self._train_step = TrainStep(
             self.model, self.optimizer, precision, self.device,
             loss_fn=self.loss_fn, apply_augmentation=self.apply_augmentation,
-            mesh=self.mesh)
+            mesh=self.mesh, tp_min_features=(config.get('tpu') or {}).get(
+                'tp_min_features', 64))
 
         self.writer = (SummaryWriter(log_dir=str(self.log_dir))
                        if _TB_AVAILABLE and self.is_main else None)
@@ -367,8 +390,8 @@ class AdverseWeatherTrainer:
         global batch is padded to a multiple of the mesh's size first (the
         JAX trainer's ``_pad_batch``) and cut to this rank's rows (numpy); a
         process-sharded loader's batch is this rank's rows already."""
-        split = (self.mesh.size > 1
-                 and getattr(loader, 'process_count', 1) == 1)
+        data = self.mesh.data
+        split = data.size > 1 and getattr(loader, 'process_count', 1) == 1
         for batch in loader:
             n = len(batch['image'])
             mask = np.ones(n, np.float32)
@@ -376,7 +399,7 @@ class AdverseWeatherTrainer:
                 arrays = {k: np.asarray(batch[k]) for k in ARRAY_KEYS
                           if k in batch}
                 (arrays, mask), _ = pad_batch_to_multiple((arrays, mask),
-                                                          self.mesh.size)
+                                                          data.size)
                 mask[n:] = 0.0
                 batch, mask = shard_batch((arrays, mask), self.mesh)
             yield dict(batch, sample_mask=mask)
@@ -388,7 +411,7 @@ class AdverseWeatherTrainer:
         pads a batch: its mask is all ones."""
         for batch in prefetch_to_device(self._rows(loader), self.device):
             mask = batch.pop('sample_mask')
-            if self.mesh.size == 1:
+            if self.mesh.data.size == 1:
                 mask = const(torch.ones, int(mask.shape[0]),
                              device=self.device)
             yield batch, mask
@@ -451,12 +474,12 @@ class AdverseWeatherTrainer:
                 if bar:
                     bar.set_postfix(loss=f"{m['total_loss']:.4f}",
                                     lr=f'{lr:.2e}')
-            meter.update(int(batch['image'].shape[0]) * self.mesh.size)
+            meter.update(int(batch['image'].shape[0]) * self.mesh.data.size)
             self.global_step += 1
         if bar:
             bar.close()
 
-        sums = psum_tree(sums, self.mesh)
+        sums = psum_tree(sums, self.mesh.data)
         meter.stop(sync_on=sums)
         total, seg, depth, n_samples = sums.tolist()   # the one fetch
         out = {
@@ -488,7 +511,7 @@ class AdverseWeatherTrainer:
                                       self._sizes(self.val_loader))
         self.model.eval()
         try:
-            with torch.no_grad(), data_parallel(self.mesh):
+            with torch.no_grad(), data_parallel(self.mesh.data):
                 weights = self.policy.cast_to_compute(self.model,
                                                       buffers=True)
                 for i, (batch, mask) in enumerate(batches):
@@ -499,7 +522,7 @@ class AdverseWeatherTrainer:
                     b, h, w, _ = images.shape
                     # the global batch's draws (in the one-device order),
                     # this rank's rows of them
-                    nb = b * self.mesh.size
+                    nb = b * self.mesh.data.size
                     rows = mesh_rows(self.mesh, nb)
                     corruption = ({k: v.to(dev) for k, v in
                                    d['corruption'].items()}
@@ -539,7 +562,7 @@ class AdverseWeatherTrainer:
         if bar:
             bar.close()
 
-        cm, sums = psum_tree((cm, sums), self.mesh)
+        cm, sums = psum_tree((cm, sums), self.mesh.data)
         total, seg, depth, n_samples = sums.tolist()   # the one fetch
         cms = cm.cpu()
         out = {
@@ -645,18 +668,22 @@ class AdverseWeatherTrainer:
     # ---------------------------------------------------------- checkpoints
 
     def _model_tree(self) -> Dict[str, Any]:
+        """The model's tree in one process's format (sharded parameters
+        gathered: a collective over the model group)."""
         return {'epoch': int(self.current_epoch), 'step': int(self.step_count),
-                'state_dict': self.model.state_dict()}
+                'state_dict': full_state_dict(self.model)}
 
     def _opt_tree(self) -> Dict[str, Any]:
         return {'optimizer': self.optimizer.state_dict()}
 
     def save_checkpoint(self, epoch: int, metrics: Dict[str, float],
                         is_best: bool = False) -> None:
-        """Rank 0 writes the checkpoint; the other ranks wait for it."""
+        """Every rank gathers the full state (sharded parameters and their
+        moments); world rank 0 writes it, the other ranks wait for it."""
         sched_state = self.scheduler.state_dict() if self.scheduler else None
+        model_tree, opt_tree = self._model_tree(), self._opt_tree()
         if self.is_main:
-            self.ckpt.save(epoch, self._model_tree(), self._opt_tree(),
+            self.ckpt.save(epoch, model_tree, opt_tree,
                            {**metrics, 'scheduler': sched_state},
                            self.config, is_best=is_best)
         if self.mesh.size > 1:
@@ -665,10 +692,12 @@ class AdverseWeatherTrainer:
     def load_checkpoint(self, checkpoint_path: str) -> None:
         """Restore the weights, BN statistics, optimiser state, epoch and
         scheduler from a checkpoint (by name or path); ``global_step``
-        stays where it is, as in the JAX trainer."""
+        stays where it is, as in the JAX trainer. A sharded model takes
+        this rank's slices of the checkpoint's full tensors, as the JAX
+        trainer re-shards a restored state."""
         model_tree, opt_tree, meta = self.ckpt.restore(
             checkpoint_path, map_location=self.device)
-        self.model.load_state_dict(model_tree['state_dict'])
+        load_full_state_dict_(self.model, model_tree['state_dict'])
         self.step_count = int(model_tree['step'])
         if opt_tree is not None:
             self.optimizer.load_state_dict(opt_tree['optimizer'])

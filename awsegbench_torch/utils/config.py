@@ -9,9 +9,10 @@ means ``'cuda'``, raising when no card is present (there is no silent CPU
 fallback; ``device: cpu`` or ``--device cpu`` asks for the CPU).
 
 The ``tpu`` section keeps its keys. ``precision`` picks the port's
-precision policy (``core/precision.py``), ``mesh_shape`` the data mesh
-(``core/mesh.py``); :func:`check_tpu_section` refuses a ``'model'`` axis
-above 1, which the port does not implement yet. ``donate_state`` has nothing to do in
+precision policy (``core/precision.py``), ``mesh_shape`` the mesh
+(``core/mesh.py``: a data axis and, above 1, a model axis whose
+parameters ``tp_min_features`` decides, as in the JAX trainer), checked by
+:func:`check_tpu_section`. ``donate_state`` has nothing to do in
 the port, whose optimiser updates the parameters in place, and
 ``dropout_rng`` picks between two JAX streams, neither of which torch can
 reproduce: the port's dropout is its own counter hash and generator draws.
@@ -251,21 +252,16 @@ def get_device_config(device_setting: str = 'auto') -> str:
 def check_tpu_section(config: Any) -> None:
     """Checks the ``tpu`` section's ``mesh_shape``: ``'auto'`` (one data
     axis over the world) or a dict of ``'data'`` and ``'model'`` sizes,
-    such as ``{'data': n}``. Raises ``NotImplementedError`` for a
-    ``'model'`` axis above 1 (tensor parallelism, the next slice of the
-    multi-device port) and ``ValueError`` for any other form; the world's
-    size is checked where the mesh is made (``core.mesh.create_mesh``).
-    ``remat`` (in ``tpu`` or ``model``) is taken:
-    ``models.factory.create_model`` reads it."""
-    from ..core.mesh import MODEL_AXIS, MODEL_AXIS_MESSAGE
+    such as ``{'data': n}`` or ``{'data': d, 'model': m}`` (tensor
+    parallelism over ``m`` ranks); ``ValueError`` for any other form. The
+    world's size (``d·m``) is checked where the mesh is made
+    (``core.mesh.create_mesh``). ``remat`` (in ``tpu`` or ``model``) is
+    taken: ``models.factory.create_model`` reads it."""
     shape = (config.get('tpu') or {}).get('mesh_shape', 'auto')
     if shape in (None, 'auto'):
         return
     if not isinstance(shape, dict) or not set(shape) <= {'data', 'model'}:
         raise ValueError(f'Unsupported mesh_shape: {shape!r}')
-    if int(shape.get(MODEL_AXIS, 1)) > 1:
-        raise NotImplementedError(f'tpu.mesh_shape={shape!r}: '
-                                  f'{MODEL_AXIS_MESSAGE}')
 
 
 def setup_logging(config: Config) -> None:

@@ -161,6 +161,19 @@ Phases, each printing one JSON line:
     global batch of 8 split 4 + 4 against one process (bf16, counted and
     timed, and f32; ``phase_parallel`` states the tolerances), and the
     tiled forward with its tiles split 2 + 2 against one rank's.
+16. tensor_parallel: the mesh's model axis (``parallel/tensor.py``) with
+    gloo ranks sharing the card. On ``{data: 1, model: 2}`` the main
+    path's ensemble at full width sharded at ``tp_min_features`` 64: the
+    eval forward at 512×1024, batch 8, against one process (f32 within
+    rtol 2e-4 and atol 2e-5, argmax equal; bf16 against bf16's own error;
+    counted: K1 8, K2 1 a rank); ``TrainStep`` on the train cell in bf16
+    (batch 8, counted: K1 8, K3 1, K6 8, K7–K10 1 each, the scatter 2 a
+    rank) and f32 (batch 4) against one process (``phase_tensor_parallel``
+    states the tolerances); each rank's bytes of parameters, gradients
+    and AdamW moments (at most 0.51 of one process's), peak memory, the
+    model axis's collectives by kind and the convolutions' and matmuls'
+    device time. On ``{data: 2, model: 2}`` (four ranks) one f32 step at
+    128×256, batch 4, against one process.
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
@@ -169,8 +182,9 @@ kernels' counterparts and the scatter; each kernel's ``launches`` from the
 path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
 train path, K4 and K5 from the single-image path, every path's counts
 (the evaluator's, the two CLIs', the pretrained eval's, the remat steps',
-the augmentation pipeline's, one serving request's, and the parallel
-phase's tiled forward, tiled sweep and each rank's step too) under
+the augmentation pipeline's, one serving request's, the parallel
+phase's tiled forward, tiled sweep and each rank's step, and the
+tensor_parallel phase's eval forward and train step on each rank too) under
 ``launches_by_path``; the
 kernels with two designs add their ``design`` per dtype and their
 per-design counts per path) and the card's ``nvidia-smi`` name and power
@@ -2641,25 +2655,27 @@ def tiled(model, x, mesh=None):
                          with_tile_info=True)
 
 
-def parallel_train_inputs(dev):
-    """The 2-rank train step's global batch (8 at 512×1024, mixed weather)
-    and every draw of it, made on the card from one seed."""
+def parallel_train_inputs(dev, h=None, w=None, b=None, seed=23):
+    """A train step's global batch (by default the 2-rank step's: 8 at
+    512×1024, mixed weather) and every draw of it, made on the card from
+    ``seed``."""
     import torch
     from awsegbench_torch.data.pipeline import draw_augment
     from awsegbench_torch.weather.corruption import draw_corruption
-    g = torch.Generator(device=dev).manual_seed(23)
-    labels = torch.randint(0, 19, (B, H, W), generator=g, device=dev)
+    h, w, b = h or H, w or W, b or B
+    g = torch.Generator(device=dev).manual_seed(seed)
+    labels = torch.randint(0, 19, (b, h, w), generator=g, device=dev)
     labels[:, :16] = 255
-    batch = (torch.randint(0, 256, (B, H, W, 3), generator=g, device=dev,
+    batch = (torch.randint(0, 256, (b, h, w, 3), generator=g, device=dev,
                            dtype=torch.uint8), labels,
-             torch.arange(B, device=dev) % 5)
-    seed = lambda v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
-    draws = {'corruption': draw_corruption(batch[2], H, W, g),
-             'augment': draw_augment(B, g, dev),
-             'fog_u': torch.rand((B, H, W), generator=g, device=dev),
-             'seed': seed(31), 'segformer_depth_seed': seed(-32),
-             'deeplab_depth_seed': seed(33),
-             'aspp_mask': torch.rand((B, H // 16, W // 16, 256), generator=g,
+             torch.arange(b, device=dev) % 5)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)     # noqa: E731
+    draws = {'corruption': draw_corruption(batch[2], h, w, g),
+             'augment': draw_augment(b, g, dev),
+             'fog_u': torch.rand((b, h, w), generator=g, device=dev),
+             'seed': i32(31), 'segformer_depth_seed': i32(-32),
+             'deeplab_depth_seed': i32(33),
+             'aspp_mask': torch.rand((b, h // 16, w // 16, 256), generator=g,
                                      device=dev) < 0.5}
     return batch, draws
 
@@ -2679,6 +2695,20 @@ def parallel_step(dev, mesh, precision):
                      precision=precision, device=dev, mesh=mesh)
 
 
+def rank_init(rank, world, port, device):
+    """Joins this spawned rank to a gloo group of ``world`` on ``port``
+    (TF32 off, the card set); returns its device."""
+    import torch
+    from awsegbench_torch.core.mesh import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == 'cuda':
+        torch.cuda.set_device(dev)
+    init_distributed(f'localhost:{port}', world, rank, backend='gloo')
+    return dev
+
+
 def parallel_rank(rank: int, port: int, tmp: str, device: str) -> None:
     """One of two ranks on the one card, over gloo (NCCL takes one card
     per rank): (a) the 2-rank train step on its 4 rows of the global
@@ -2686,15 +2716,10 @@ def parallel_rank(rank: int, port: int, tmp: str, device: str) -> None:
     all-reduce alone) and in f32; (b) the f32 tiled forward with 2 of the
     4 tiles. Saves its results under ``tmp``."""
     import torch
-    from awsegbench_torch.core.mesh import create_mesh, init_distributed
+    from awsegbench_torch.core.mesh import create_mesh
     from awsegbench_torch.models import create_model
     from awsegbench_torch.train.trainer import all_reduce_grads
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(device)
-    if dev.type == 'cuda':
-        torch.cuda.set_device(dev)
-    init_distributed(f'localhost:{port}', 2, rank, backend='gloo')
+    dev = rank_init(rank, 2, port, device)
     try:
         mesh = create_mesh()
         inp = torch.load(Path(tmp) / 'inputs.pt', weights_only=False)
@@ -2741,9 +2766,10 @@ def parallel_rank(rank: int, port: int, tmp: str, device: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def run_two_ranks(tmp: str, dev) -> list:
-    """``parallel_rank`` in two spawned processes on a free port; raises if
-    a rank fails or does not finish within ``PARALLEL_JOIN_S``."""
+def run_ranks(target, world: int, tmp: str, dev) -> list:
+    """``target(rank, port, tmp, device)`` in ``world`` spawned processes on
+    a free port; each saves its result as ``rank<r>.pt`` under ``tmp``.
+    Raises if a rank fails or does not finish within ``PARALLEL_JOIN_S``."""
     import socket
 
     import torch
@@ -2752,8 +2778,8 @@ def run_two_ranks(tmp: str, dev) -> list:
         sock.bind(('localhost', 0))
         port = sock.getsockname()[1]
     ctx = mp.get_context('spawn')
-    procs = [ctx.Process(target=parallel_rank, args=(r, port, tmp, str(dev)))
-             for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, port, tmp, str(dev)))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + PARALLEL_JOIN_S
@@ -2764,11 +2790,11 @@ def run_two_ranks(tmp: str, dev) -> list:
         p.kill()
         p.join(30)
     codes = [p.exitcode for p in procs]
-    if hung or codes != [0, 0]:
-        raise AssertionError(f'parallel: rank exit codes {codes}, '
+    if hung or codes != [0] * world:
+        raise AssertionError(f'{target.__name__}: rank exit codes {codes}, '
                              f'{len(hung)} killed after {PARALLEL_JOIN_S} s')
     return [torch.load(Path(tmp) / f'rank{r}.pt', weights_only=False)
-            for r in range(2)]
+            for r in range(world)]
 
 
 def phase_parallel(dev):
@@ -2930,7 +2956,7 @@ def phase_parallel(dev):
                               for k, v in draws.items()},
                     'image': x.cpu()}, Path(tmp) / 'inputs.pt')
         t0 = time.perf_counter()
-        ranks = run_two_ranks(tmp, dev)
+        ranks = run_ranks(parallel_rank, 2, tmp, dev)
         res['two_rank_wall_s'] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2990,6 +3016,502 @@ def phase_parallel(dev):
     return launches, sweep_launches, r0['launches'], r1['launches']
 
 
+# The tensor-parallel phase: a {data: 1, model: 2} mesh of two gloo ranks
+# sharing the card. Its f32 checks run at a batch of 2 (the eval forward)
+# and 2 (the train step): gloo stages every collective through the host,
+# about 0.5 GB/s, and an f32 batch of 8 gathers some 8 GB a step; the
+# {data: 2, model: 2} step at 128×256, batch 4.
+TP_MESH = {'data': 1, 'model': 2}
+TP_EVAL_F32_B = 2
+TP_F32_B = 2
+TP_SMALL = (128, 256, 4)
+TP_MIN_FEATURES = 64
+TP_LOSS_RTOL = 1e-3           # a rank's losses against one process's
+# the ops whose device time is the convolutions' and the matmuls'
+CONV_MM_OPS = ('aten::convolution', 'aten::convolution_backward',
+               'aten::addmm', 'aten::mm', 'aten::bmm')
+
+
+def conv_mm_device_ms(prof) -> float:
+    """Device ms of the convolutions and matmuls (their aten ops, forward
+    and backward) in a torch.profiler profile."""
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key in CONV_MM_OPS:
+            total += e.device_time_total
+    return total / 1e3
+
+
+def state_bytes(params, optimizer) -> dict:
+    """Bytes of the parameters, their gradients and the optimiser's
+    per-element state (AdamW's two moments) this process holds."""
+    import torch
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    params = list(params)
+    return {'params': nbytes(params),
+            'grads': nbytes(p.grad for p in params if p.grad is not None),
+            'moments': nbytes(v for st in optimizer.inner.state.values()
+                              for v in st.values()
+                              if torch.is_tensor(v) and v.ndim)}
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+def tp_step(dev, mesh, precision):
+    """``TrainStep`` on the train path's model (depth heads) with bench.py's
+    optimiser (clip 1.0, AdamW 1e-3, decay 1e-4) in ``precision`` on
+    ``mesh`` (sharded at ``TP_MIN_FEATURES`` on a model axis)."""
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.train.step import TrainStep
+    return TrainStep(create_model(TRAIN_CFG, device=dev, seed=0),
+                     precision=precision, device=dev, mesh=mesh,
+                     tp_min_features=TP_MIN_FEATURES)
+
+
+def argmax_ties(got, want) -> tuple[int, int]:
+    """(pixels whose class argmax differs, those of them whose top-2 logits
+    in ``want`` lie further apart than the f32 tolerance allows both to
+    move: 2·(2e-5 + 2e-4·|top|)); the latter must be 0, the former are ties
+    at f32's resolution."""
+    import torch
+    diff = got.argmax(-1) != want.argmax(-1)
+    top2 = want[diff].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    return (int(diff.sum()), int((margin > 2 * (2e-5 + 2e-4 * top2[:, 0]
+                                                .abs())).sum()))
+
+
+def tp_rank(rank: int, port: int, tmp: str, device: str) -> None:
+    """One of two ranks of the {data: 1, model: 2} mesh on the one card,
+    over gloo: (a) the main path's eval forward at 512×1024, f32 at
+    ``TP_EVAL_F32_B`` rows against the unsharded model in this process,
+    bf16 at B rows counted and timed; (b) ``TrainStep`` on the train cell,
+    bf16 at B rows (one step: counted, timed, its model-axis collectives
+    recorded and the profiler on) and f32 at ``TP_F32_B`` rows; (c) this
+    rank's bytes of parameters, gradients and AdamW moments, and its peak
+    memory; (d) the collectives and the convolutions' and matmuls' device
+    time (the other rank's kernels share the card). Saves its results
+    under ``tmp``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from awsegbench_torch.core.mesh import create_mesh, tp_param_shardings
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.parallel.tensor import record_comm, shard_model_
+    dev = rank_init(rank, 2, port, device)
+    t_rank = time.perf_counter()
+    try:
+        mesh = create_mesh(mesh_shape=TP_MESH)
+        out = {'place': (mesh.rank, mesh.data.rank, mesh.model.rank)}
+        g = torch.Generator(device=dev).manual_seed(41)
+        x = torch.randn((B, H, W, 3), generator=g, device=dev)
+
+        # (a) eval: f32 against this process's unsharded forward, then bf16
+        model = create_model(MODEL_CFG, device=dev, seed=0).eval()
+        x32 = x[:TP_EVAL_F32_B]
+        with torch.inference_mode():
+            ref = model(x32)
+        shard_model_(model, mesh, tp_param_shardings(model, mesh,
+                                                     TP_MIN_FEATURES))
+        with torch.inference_mode():
+            got = model(x32)
+        out['f32_max_abs_err'] = {k: max_err(got[k], v)
+                                  for k, v in ref.items()}
+        # the largest |Δ| − (2e-5 + 2e-4·|ref|): at most 0 within tolerance
+        out['f32_excess'] = {
+            k: ((got[k] - v).abs() - 2e-5 - 2e-4 * v.abs()).max().item()
+            for k, v in ref.items()}
+        out['f32_argmax_ties'] = {k: argmax_ties(got[k], ref[k])
+                                  for k in ref if not k.endswith('depth')}
+        del got, ref, x32
+        out['eval_f32_s'] = time.perf_counter() - t_rank
+        model = model.to(torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+
+        @torch.inference_mode()
+        def forward():
+            return model(xb)
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tp16, out['eval_launches'] = run_counted(
+            forward, ('sr_attention', 'seg_core'), f'rank {rank} tp eval')
+        out['bf16_eval_ms'] = (time.perf_counter() - t0) * 1e3
+        tp_argmax = tp16['segmentation'].argmax(-1)
+        del tp16, model
+        mono = create_model(MODEL_CFG, device=dev, seed=0).eval()
+        with torch.inference_mode():
+            f32_argmax = mono(x)['segmentation'].argmax(-1)
+            mono_argmax = mono.to(torch.bfloat16)(xb)['segmentation'].argmax(
+                -1)
+        out['bf16_argmax_agreement'] = {
+            'tp_vs_1_process': (tp_argmax == mono_argmax).float().mean()
+            .item(),
+            'tp_vs_f32': (tp_argmax == f32_argmax).float().mean().item(),
+            '1_process_vs_f32': (mono_argmax == f32_argmax).float().mean()
+            .item()}
+        out['eval_s'] = time.perf_counter() - t_rank
+        del mono, x, xb
+        torch.cuda.empty_cache()
+
+        # (b)–(d) the train step
+        inp = torch.load(Path(tmp) / 'inputs.pt', weights_only=False)
+        batch = tuple(t.to(dev) for t in inp['bf16'][0])
+        draws = inp['bf16'][1]
+        step = tp_step(dev, mesh, 'bf16')
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with record_comm() as log, profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss, out['train_launches'] = run_counted(
+                lambda: step(*batch, draws=draws), TRAIN_COUNTERS,
+                f'rank {rank} tp train')
+        out['bf16_step_ms'] = (time.perf_counter() - t0) * 1e3
+        out['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out['train_comm'] = comm_record(log)
+        out['conv_mm_device_ms'] = conv_mm_device_ms(prof)
+        out['bf16'] = ({k: float(v) for k, v in loss.items()},
+                       {n: p.grad.float().cpu() for n, p in
+                        step.model.named_parameters()})
+        out['bytes'] = state_bytes(step.model.parameters(), step.optimizer)
+        del step, prof
+        torch.cuda.empty_cache()
+        step = tp_step(dev, mesh, 'fp32')
+        loss = step(*(t.to(dev) for t in inp['fp32'][0]),
+                    draws=inp['fp32'][1])
+        out['fp32'] = ({k: float(v) for k, v in loss.items()},
+                       {n: p.grad.cpu() for n, p in
+                        step.model.named_parameters()})
+        out['rank_s'] = time.perf_counter() - t_rank
+        torch.save(out, Path(tmp) / f'rank{rank}.pt')
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_small_rank(rank: int, port: int, tmp: str, device: str) -> None:
+    """One of four ranks of a {data: 2, model: 2} mesh on the one card:
+    one f32 ``TrainStep`` at ``TP_SMALL``; saves its gradients and
+    place."""
+    import torch
+    from awsegbench_torch.core.mesh import create_mesh
+    dev = rank_init(rank, 4, port, device)
+    try:
+        mesh = create_mesh(mesh_shape={'data': 2, 'model': 2})
+        inp = torch.load(Path(tmp) / 'inputs.pt', weights_only=False)
+        step = tp_step(dev, mesh, 'fp32')
+        loss = step(*(t.to(dev) for t in inp['small'][0]),
+                    draws=inp['small'][1])
+        torch.save({'place': (mesh.rank, mesh.data.rank, mesh.model.rank),
+                    'loss': {k: float(v) for k, v in loss.items()},
+                    'grads': {n: p.grad.cpu() for n, p in
+                              step.model.named_parameters()}},
+                   Path(tmp) / f'rank{rank}.pt')
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def comm_record(log) -> dict:
+    """A ``parallel.tensor.CommLog`` as {kind: calls, MB, ms}."""
+    return {k: {'calls': log.calls[k], 'mb': log.bytes[k] / 1e6,
+                'ms': log.seconds[k] * 1e3} for k in log.calls}
+
+
+def gather_shards(ranks, key, layout_full):
+    """Each parameter's full tensor from the ranks of one model group
+    (``ranks`` in model-rank order): shards concatenated on dim 0."""
+    import torch
+    out = {}
+    for n, full in layout_full.items():
+        parts = [r[key][n] if not isinstance(r[key], tuple) else r[key][1][n]
+                 for r in ranks]
+        out[n] = (parts[0] if tuple(parts[0].shape) == tuple(full)
+                  else torch.cat(parts))
+    return out
+
+
+def rank_share_conv_mm_ms(dev, batch, draws) -> float:
+    """The device ms of the convolutions and matmuls in one bf16 train step
+    of one rank's share of the model on ``TP_MESH`` (rank 0's slices), run
+    alone in this process: the model axis's collectives are replaced by
+    local copies (the values are meaningless, the shapes a rank's), so the
+    other rank's kernels do not share the card's time with these."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from awsegbench_torch.core.mesh import (DataMesh, TPMesh,
+                                            tp_param_shardings)
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.parallel import tensor
+    from awsegbench_torch.train import optim
+    from awsegbench_torch.train.step import TrainStep
+    m = TP_MESH['model']
+    mesh = TPMesh(DataMesh(), DataMesh(0, m, None, 'model'), 0, m)
+    saved = (tensor._gather, tensor.all_reduce_, optim.all_reduce_)
+    tensor._gather = lambda t, dim, mesh: torch.cat([t] * mesh.size, dim)
+    tensor.all_reduce_ = optim.all_reduce_ = lambda t, mesh, op=None: t
+    try:
+        model = create_model(TRAIN_CFG, device=dev, seed=0)
+        tensor.shard_model_(model, mesh, tp_param_shardings(
+            model, mesh, TP_MIN_FEATURES))
+        step = TrainStep(model, precision='bf16', device=dev, mesh=mesh)
+        step(*batch, draws=draws)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*batch, draws=draws)
+            torch.cuda.synchronize()
+        return conv_mm_device_ms(prof)
+    finally:
+        tensor._gather, tensor.all_reduce_, optim.all_reduce_ = saved
+        torch.cuda.empty_cache()
+
+
+def phase_tensor_parallel(dev):
+    """The mesh's model axis (tensor parallelism, ``parallel/tensor.py``)
+    on the card, with gloo ranks sharing it (spawned as ``phase_parallel``
+    spawns them).
+
+    1. ``{data: 1, model: 2}``, the main path's ensemble at full width (19
+       classes, depth heads, faithful heads), sharded at
+       ``tp_min_features`` 64: (a) the eval forward at 512×1024: f32 at
+       ``TP_EVAL_F32_B`` rows against one process on the same weights
+       within rtol 2e-4 and atol 2e-5, the argmax equal wherever one
+       process's top two logits are not tied at that tolerance
+       (``argmax_ties``); bf16 at batch 8 held against bf16's own error
+       (its argmax agreement with the f32 one at most 0.1% below one
+       process's), counted (K1 8, K2 1 a rank) and timed. (b)
+       ``TrainStep`` on the train cell with bench.py's optimiser (clip
+       1.0, AdamW), the global batch of 8 on both ranks in bf16 (counted:
+       K1 8, K3 1, K6 8, K7–K10 1 each, the scatter 2 a rank) and
+       ``TP_F32_B`` rows in f32, against one process: the losses within
+       ``TP_LOSS_RTOL``; the clipped f32 gradients, shards concatenated,
+       at the train parity tolerances (``grad_spread``, DeepLab within 0.1
+       relative L2); the bf16 gradients per member within 1.5× (and 1e-3)
+       the one-process bf16 gradient's relative L2 distance from the f32
+       one of the same batch; the two ranks' replicated gradients
+       bit-equal. (c) Bytes per rank of parameters, gradients and AdamW
+       moments against one process (at most 0.51), and peak memory. (d)
+       The model axis's collectives in that step (calls, MB and ms by
+       kind, synchronised while recorded; gloo stages through the host,
+       so they are the semantics' cost, not a scaling number) and the
+       device time of the convolutions and matmuls: a rank's in that step
+       (the other rank's kernels share the card), a rank's share run
+       alone (``rank_share_conv_mm_ms``), and one process's.
+    2. ``{data: 2, model: 2}``, four ranks: one f32 ``TrainStep`` at
+       128×256, batch 4, against one process at the train parity
+       tolerances: both subgroups on the card.
+    Returns the launches of each rank's counted bf16 eval forward and
+    train step."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from awsegbench_torch.core.mesh import DataMesh
+
+    t_phase = time.perf_counter()
+    res = {'phase': 'tensor_parallel', 'nvidia_smi': nvidia_smi(),
+           'mesh': TP_MESH, 'tp_min_features': TP_MIN_FEATURES,
+           'eval_batch': {'bf16': B, 'fp32': TP_EVAL_F32_B},
+           'train_batch': {'bf16': B, 'fp32': TP_F32_B},
+           'hw': [H, W], 'backend': 'gloo (one card)'}
+    inputs = {'bf16': parallel_train_inputs(dev, seed=43),
+              'fp32': parallel_train_inputs(dev, b=TP_F32_B, seed=44),
+              'small': parallel_train_inputs(dev, *TP_SMALL, seed=45)}
+    one = {}
+    for precision in ('bf16', 'fp32'):
+        step = tp_step(dev, DataMesh(), precision)
+        batch, draws = inputs[precision]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss = step(*batch, draws=draws)
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        one[precision] = ({k: float(v) for k, v in loss.items()},
+                          {n: p.grad.float().cpu()
+                           for n, p in step.model.named_parameters()})
+        if precision == 'bf16':
+            res['1_process'] = {
+                'bytes': state_bytes(step.model.parameters(),
+                                     step.optimizer),
+                'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                'conv_mm_device_ms': conv_mm_device_ms(prof),
+                'bf16_first_step_ms_profiled': step_ms}
+            shapes = {n: p.shape for n, p in step.model.named_parameters()}
+        del step, prof
+        torch.cuda.empty_cache()
+    # the f32 gradients of the bf16 step's batch (bf16's own error) and of
+    # the 2x2 mesh's
+    f32 = {}
+    for name in ('bf16', 'small'):
+        step = tp_step(dev, DataMesh(), 'fp32')
+        loss = step(*inputs[name][0], draws=inputs[name][1])
+        f32[name] = ({k: float(v) for k, v in loss.items()},
+                     {n: p.grad.cpu() for n, p in
+                      step.model.named_parameters()})
+        del step, loss
+        torch.cuda.empty_cache()
+    small = f32['small']
+    from awsegbench_torch.models import create_model
+    model = create_model(MODEL_CFG, device=dev, seed=0).eval().to(
+        torch.bfloat16)
+    xb = torch.randn((B, H, W, 3), generator=torch.Generator(
+        device=dev).manual_seed(41), device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        res['1_process']['bf16_eval_ms'] = time_ms(lambda: model(xb),
+                                                   reps=3, warmup=1)
+    del model, xb
+    torch.cuda.empty_cache()
+    res['rank_share_conv_mm_device_ms'] = rank_share_conv_mm_ms(
+        dev, *inputs['bf16'])
+
+    res['one_process_s'] = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp(prefix='awseg_tp_')
+    try:
+        torch.save(to_cpu(inputs), Path(tmp) / 'inputs.pt')
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rank, 2, tmp, dev)
+        res['two_rank_wall_s'] = time.perf_counter() - t0
+        for r in range(2):
+            (Path(tmp) / f'rank{r}.pt').unlink()
+        t0 = time.perf_counter()
+        fours = run_ranks(tp_small_rank, 4, tmp, dev)
+        res['four_rank_wall_s'] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # Every check below adds to ``failed``; the phase's line is printed
+    # first, then it raises if any check failed.
+    failed = []
+    r0, r1 = ranks
+
+    # (a) eval
+    if [r['place'] for r in ranks] != [(0, 0, 0), (1, 0, 1)]:
+        failed.append(f'places {[r["place"] for r in ranks]}')
+    for r in ranks:
+        # an argmax may differ only where one process's top two logits are
+        # tied at f32's resolution (``argmax_ties``)
+        if max(r['f32_excess'].values()) > 0 or any(
+                n for _, n in r['f32_argmax_ties'].values()):
+            failed.append(f'f32 eval on rank {r["place"]}: excess over '
+                          f'rtol 2e-4 + atol 2e-5 {r["f32_excess"]}, argmax '
+                          f'(mismatches, untied) {r["f32_argmax_ties"]}')
+        a = r['bf16_argmax_agreement']
+        if a['tp_vs_f32'] < a['1_process_vs_f32'] - 1e-3:
+            failed.append(f'bf16 argmax {a}')
+        if (r['eval_launches']['sr_attention'],
+                r['eval_launches']['seg_core']) != (8, 1):
+            failed.append(f'a TP eval forward launched {r["eval_launches"]}')
+        want = {'sr_attention': 8, 'splat_coverage_batched': 1,
+                'sr_attention_backward': 8, 'seg_core_train': 1,
+                'seg_core_train_backward': 1, 'd1_core_train': 1,
+                'd1_core_train_backward': 1, 'neighbor_pp_adjoint': 2}
+        got = {k: r['train_launches'][k] for k in want}
+        if got != want:
+            failed.append(f'a rank\'s train step launched {got}, expected '
+                          f'{want}')
+
+    # (b) the train step against one process
+    for precision, (loss1, grads1) in one.items():
+        for r in ranks:
+            for k in ('total_loss', 'depth_loss'):
+                if not abs(r[precision][0][k] - loss1[k]) <= TP_LOSS_RTOL \
+                        * abs(loss1[k]):
+                    failed.append(f'{precision} {k} {r[precision][0][k]}, '
+                                  f'1 process {loss1[k]}')
+        split = [n for n, g in r0[precision][1].items()
+                 if tuple(g.shape) == tuple(shapes[n])
+                 and not torch.equal(g, r1[precision][1][n])]
+        if split:
+            failed.append(f'{precision}: replicated leaves differ between '
+                          f'the ranks: {split[:5]}')
+        grads2 = gather_shards([r0, r1], precision, shapes)
+        held, dl_rel, exact = grad_spread(
+            grads2, grads1, f'tensor_parallel {precision}', hold=False)
+        if precision == 'fp32' and (held > 2e-3 or dl_rel > 0.1):
+            failed.append(f'f32 gradients: excess {held} of a leaf scale, '
+                          f'DeepLab {dl_rel} relative L2')
+        res[precision] = {'loss_1_process': loss1,
+                          'loss_ranks': [r[precision][0] for r in ranks],
+                          'grad_excess_over_rtol_per_leaf_scale': held,
+                          'deeplab_grad_max_rel_l2': dl_rel,
+                          'grads_bit_equal_share': exact}
+        if precision == 'bf16':
+            bf16_grads = grads2
+    # bf16: each member's gradient as far from the f32 one of the same batch
+    # as one process's bf16 gradient is, within 1.5× and 1e-3
+    f32_grads = f32['bf16'][1]
+    l2 = {'tp': member_l2(bf16_grads, f32_grads),
+          '1_process': member_l2(one['bf16'][1], f32_grads)}
+    res['bf16']['member_rel_l2_from_f32'] = l2
+    for member, e1 in l2['1_process'].items():
+        if l2['tp'][member] > 1.5 * e1 + 1e-3:
+            failed.append(f'bf16 {member} gradients {l2} from the f32 ones')
+
+    # (c) bytes and memory; (d) collectives and conv/matmul device time
+    one_b = res['1_process']['bytes']
+    res['rank_bytes'] = [r['bytes'] for r in ranks]
+    res['rank_bytes_share'] = [
+        {k: r['bytes'][k] / one_b[k] for k in one_b} for r in ranks]
+    for sh in res['rank_bytes_share']:
+        if max(sh.values()) > 0.51:
+            failed.append(f'a rank holds {sh} of one process\'s bytes')
+    res.update({
+        'rank_peak_mem_gib': [r['peak_mem_gib'] for r in ranks],
+        'rank_conv_mm_device_ms': [r['conv_mm_device_ms'] for r in ranks],
+        'rank_bf16_step_ms': [r['bf16_step_ms'] for r in ranks],
+        'rank_bf16_eval_ms': [r['bf16_eval_ms'] for r in ranks],
+        'eval_f32_max_abs_err': [r['f32_max_abs_err'] for r in ranks],
+        'eval_f32_excess': [r['f32_excess'] for r in ranks],
+        'eval_f32_argmax_ties': [r['f32_argmax_ties'] for r in ranks],
+        'bf16_argmax_agreement': [r['bf16_argmax_agreement']
+                                  for r in ranks],
+        'train_comm': [r['train_comm'] for r in ranks],
+        'eval_launches': [r['eval_launches'] for r in ranks],
+        'train_launches': [r['train_launches'] for r in ranks],
+        'rank_seconds': [{k: r[k] for k in ('eval_f32_s', 'eval_s',
+                                            'rank_s')} for r in ranks]})
+
+    # 2. {data: 2, model: 2}
+    if [f['place'] for f in fours] != [(0, 0, 0), (1, 0, 1), (2, 1, 0),
+                                       (3, 1, 1)]:
+        failed.append(f'4-rank places {[f["place"] for f in fours]}')
+    for f in fours:
+        for k in ('total_loss', 'depth_loss'):
+            if not abs(f['loss'][k] - small[0][k]) <= 1e-4 * abs(small[0][k]):
+                failed.append(f'4-rank {k} {f["loss"][k]}, one '
+                              f'{small[0][k]}')
+    grads4 = gather_shards(fours[:2], 'grads', shapes)
+    held, dl_rel, exact = grad_spread(grads4, small[1],
+                                      'tensor_parallel 2x2 f32', hold=False)
+    if held > 2e-3 or dl_rel > 0.1:
+        failed.append(f'2x2 f32 gradients: excess {held} of a leaf scale, '
+                      f'DeepLab {dl_rel} relative L2')
+    res['2x2_fp32'] = {'hw': list(TP_SMALL[:2]), 'batch': TP_SMALL[2],
+                       'loss_1_process': small[0],
+                       'loss_ranks': [f['loss'] for f in fours],
+                       'grad_excess_over_rtol_per_leaf_scale': held,
+                       'deeplab_grad_max_rel_l2': dl_rel}
+    res['phase_wall_s'] = time.perf_counter() - t_phase
+    res['failed'] = failed
+    emit(res)
+    if failed:
+        raise AssertionError(f'tensor_parallel: {failed}')
+    return ([r['eval_launches'] for r in ranks],
+            [r['train_launches'] for r in ranks])
+
+
 def main() -> int:
     try:
         import torch
@@ -3045,6 +3567,7 @@ def main() -> int:
     serving_launches = phase_serving(dev)
     (tiled_launches, tiled_sweep_launches, rank0_launches,
      rank1_launches) = phase_parallel(dev)
+    tp_eval_launches, tp_train_launches = phase_tensor_parallel(dev)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
@@ -3066,7 +3589,11 @@ def main() -> int:
              'parallel_tiled_eval': tiled_launches,
              'parallel_tiled_sweep': tiled_sweep_launches,
              'parallel_train_rank0': rank0_launches,
-             'parallel_train_rank1': rank1_launches}
+             'parallel_train_rank1': rank1_launches,
+             'tp_eval_rank0': tp_eval_launches[0],
+             'tp_eval_rank1': tp_eval_launches[1],
+             'tp_train_rank0': tp_train_launches[0],
+             'tp_train_rank1': tp_train_launches[1]}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):

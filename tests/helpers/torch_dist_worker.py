@@ -13,6 +13,7 @@ never import JAX.
 
 from __future__ import annotations
 
+import io
 import os
 import socket
 import time
@@ -297,5 +298,183 @@ def cli_job(payload) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: jobs on a {data: d, model: m} mesh
+# ---------------------------------------------------------------------------
+
+def _leaf_flops(model, run) -> dict:
+    """``run()``'s FLOPs by leaf conv and linear module (by name)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run()
+    counts = counter.get_flop_counts()
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            key = next((k for k in counts if k.endswith('.' + name)), None)
+            out[name] = sum(counts[key].values()) if key else 0
+    return out
+
+
+def tp_forward_job(payload) -> dict:
+    """The narrow ensemble's eval forward on the payload's ``shape`` mesh,
+    its parameters sharded at ``tp_min_features``: its outputs, the
+    unsharded forward's on this rank, each leaf conv and linear layer's
+    FLOPs in both, the layout and the mesh's place of this rank."""
+    from awsegbench_torch.core.mesh import create_mesh, tp_param_shardings
+    from awsegbench_torch.parallel.tensor import shard_model_
+    model = narrow_ensemble(payload['num_classes'],
+                            payload['include_depth']).eval()
+    model.load_state_dict(payload['state'])
+    x = payload['x']
+    with torch.no_grad():
+        ref = model(x)
+        flops_ref = _leaf_flops(model, lambda: model(x))
+    mesh = create_mesh(mesh_shape=payload['shape'])
+    layout = tp_param_shardings(model, mesh, payload['tp_min_features'])
+    shard_model_(model, mesh, layout)
+    with torch.no_grad():
+        out = model(x)
+        flops = _leaf_flops(model, lambda: model(x))
+    return {'out': out, 'ref': ref, 'flops': flops, 'flops_ref': flops_ref,
+            'layout': layout, 'rank': mesh.rank,
+            'data': (mesh.data.rank, mesh.data.size),
+            'model': (mesh.model.rank, mesh.model.size),
+            'local_shapes': {n: tuple(p.shape)
+                             for n, p in model.named_parameters()}}
+
+
+def tp_step_job(payload) -> dict:
+    """One ``TrainStep`` (f32, AdamW, the payload's clip; the MiT blocks
+    rematerialised with ``remat``) of the narrow ensemble with depth heads
+    on the payload's ``shape`` mesh: the losses, this rank's gradients and
+    updated parameters (slices where sharded), BN buffers, AdamW's state
+    shapes and ``opt_state_shardings``, the parameter, gradient and moment
+    bytes this rank holds."""
+    from awsegbench_torch.core.mesh import (create_mesh, opt_state_shardings,
+                                            tp_param_shardings)
+    from awsegbench_torch.parallel.tensor import full_state_dict
+    from awsegbench_torch.train.optim import create_optimizer
+    from awsegbench_torch.train.step import TrainStep
+    model = narrow_ensemble(payload['num_classes'], True)
+    model.load_state_dict(payload['state'])
+    model.segformer.MiTEncoder_0.remat = payload.get('remat', False)
+    mesh = create_mesh(mesh_shape=payload['shape'])
+    names = [n for n, _ in model.named_parameters()]
+    optimizer = create_optimizer(model.parameters(), payload['optimizer'],
+                                 grad_clip=payload['grad_clip'])
+    step = TrainStep(model, optimizer, precision='fp32', device='cpu',
+                     mesh=mesh, tp_min_features=payload['tp_min_features'])
+    layout = tp_param_shardings(narrow_ensemble(payload['num_classes'],
+                                                True), mesh,
+                                payload['tp_min_features'])
+    loss = step(*payload['batch'], draws=payload['draws'])
+    params = dict(model.named_parameters())
+    inner = optimizer.inner
+    state = {n: {k: tuple(v.shape) for k, v in inner.state[p].items()}
+             for n, p in params.items()}
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    return {'loss': {k: v.clone() for k, v in loss.items()},
+            'grads': {n: p.grad.clone() for n, p in params.items()},
+            'params': {n: p.detach().clone() for n, p in params.items()},
+            'buffers': {n: b.clone() for n, b in model.named_buffers()},
+            'layout': layout, 'state_shapes': state,
+            'opt_layout': opt_state_shardings(inner, layout, names),
+            'full': full_state_dict(model),
+            'bytes': {'params': nbytes(params.values()),
+                      'grads': nbytes(p.grad for p in params.values()),
+                      'moments': nbytes(v for st in inner.state.values()
+                                        for v in st.values() if v.ndim)},
+            'rank': mesh.rank, 'data': (mesh.data.rank, mesh.data.size),
+            'model': (mesh.model.rank, mesh.model.size)}
+
+
+def tp_trainer(payload, checkpoint_dir):
+    """An ``AdverseWeatherTrainer`` of the narrow ensemble (depth heads)
+    with the payload's config (its ``tpu.mesh_shape``) and loaders, on
+    the CPU."""
+    from awsegbench_torch.train.trainer import AdverseWeatherTrainer
+    model = narrow_ensemble(payload['num_classes'], True)
+    model.load_state_dict(payload['state'])
+    d = Path(checkpoint_dir)
+    return AdverseWeatherTrainer(model, payload['train'], payload['val'],
+                                 payload['config'], device='cpu',
+                                 checkpoint_dir=str(d / 'c'),
+                                 log_dir=str(d / 'l'))
+
+
+def tp_trainer_job(payload) -> dict:
+    """On a {data: 2, model: 2} mesh: one train epoch and one validation
+    of the trainer (their metrics and the full state after them);
+    ``EarlyStopping``'s snapshot and restore of the sharded model; another
+    epoch after the restore; the ``Evaluator`` sweep of the payload's
+    ``sweep`` on the same mesh."""
+    from awsegbench_torch.parallel.tensor import full_state_dict, shard_of
+    from awsegbench_torch.train.trainer import EarlyStopping
+    rank = dist.get_rank()
+    trainer = tp_trainer(payload, Path(payload['dir']) / f'rank{rank}')
+    out = {'train': trainer.train_epoch(), 'val': trainer.validate_epoch(),
+           'mesh': trainer.mesh.shape, 'is_main': trainer.is_main}
+    out['full'] = {k: v.clone() for k, v in
+                   full_state_dict(trainer.model).items()}
+    model = trainer.model
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    es = EarlyStopping(patience=1, min_delta=0.0)
+    stops = [es(1.0, model)[0]]
+    best = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    stop, restored = es(2.0, model)
+    stops.append(stop)
+    out['restore'] = {
+        'stops': stops, 'same_model': restored is model,
+        'equal': all(torch.equal(v, restored.state_dict()[k])
+                     for k, v in best.items()),
+        'shapes_kept': all(p.shape == shapes[n]
+                           for n, p in restored.named_parameters()),
+        'sharded': sorted(n for n, p in restored.named_parameters()
+                          if shard_of(p) is not None)}
+    out['after_restore'] = trainer.train_epoch()
+    out['sweep'] = sweep_job(payload['sweep'], trainer.mesh)
+    return out
+
+
+def _saved(obj) -> bytes:
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    return buf.getvalue()
+
+
+def tp_checkpoint_job(payload) -> dict:
+    """On a {data: 1, model: 2} mesh: a train epoch and a checkpoint
+    written by world rank 0 (the full state dict and optimiser state it
+    gathered), then a one-process checkpoint loaded (this rank's
+    parameters and optimiser state); then ``cli_job`` on the payload's
+    ``cli``."""
+    from awsegbench_torch.parallel.tensor import full_state_dict
+    rank = dist.get_rank()
+    trainer = tp_trainer(payload, payload['dir'] if rank == 0 else
+                         Path(payload['dir']) / f'rank{rank}')
+    trainer.train_epoch()
+    trainer.save_checkpoint(0, {'val_miou': 0.5}, is_best=False)
+    out = torch.load(io.BytesIO(_saved({
+        'full': full_state_dict(trainer.model),
+        'full_optimizer': trainer.optimizer.state_dict()})),
+        weights_only=False)             # copies, before the load below
+    trainer.load_checkpoint(payload['one_checkpoint'])
+    out['loaded'] = {k: v.clone() for k, v in
+                     trainer.model.state_dict().items()}
+    out['loaded_optimizer'] = trainer.optimizer.inner.state_dict()
+    out['epoch'], out['rank'] = trainer.current_epoch, rank
+    out['cli'] = cli_job(payload['cli'])
+    return out
+
+
 JOBS = {'train': train_job, 'sweep': sweep_job, 'tiles': tiles_job,
-        'collectives': collectives_job, 'cli': cli_job}
+        'collectives': collectives_job, 'cli': cli_job,
+        'tp_forward': tp_forward_job, 'tp_step': tp_step_job,
+        'tp_trainer': tp_trainer_job, 'tp_checkpoint': tp_checkpoint_job}

@@ -157,28 +157,35 @@ def test_device_config():
                 pconfig.get_device_config(name)
 
 
-# A 'model' mesh axis above 1 is the next slice of the multi-device port;
-# a mesh_shape that is neither 'auto' nor a dict of axes is refused, as
-# JAX's create_mesh refuses it.
+# A mesh_shape dict of 'data' and 'model' axes (a model axis above 1 is
+# tensor parallelism) passes the config check and builds the model; the
+# world's size is checked where the mesh is made, so on one process the
+# Evaluator refuses a mesh of 4 ranks. A mesh_shape that is neither 'auto'
+# nor a dict of axes is refused everywhere, as JAX's create_mesh refuses
+# it.
 TPU_RAISES = [
-    ({'tpu': {'mesh_shape': {'data': 2, 'model': 2}}}, NotImplementedError,
-     'next slice'),
-    ({'tpu': {'mesh_shape': [4]}}, ValueError, 'Unsupported mesh_shape'),
+    ({'tpu': {'mesh_shape': {'data': 2, 'model': 2}}}, False,
+     'needs 4 devices, have 1'),
+    ({'tpu': {'mesh_shape': [4]}}, True, 'Unsupported mesh_shape'),
 ]
 
 
-@pytest.mark.parametrize('cfg,exc,match', TPU_RAISES,
+@pytest.mark.parametrize('cfg,refused,match', TPU_RAISES,
                          ids=['mesh_dict', 'mesh_list'])
-def test_tpu_keys_the_port_lacks_raise(cfg, exc, match):
-    with pytest.raises(exc, match=match):
-        pconfig.check_tpu_section(cfg)
+def test_tpu_keys_the_port_lacks_raise(cfg, refused, match):
     whole = {'model': {'type': 'segformer', 'num_classes': 3,
                        **cfg.get('model', {})}, 'tpu': cfg.get('tpu', {})}
-    with pytest.raises(exc, match=match):
-        create_model(whole, device='cpu')
-    if 'mesh_shape' in cfg.get('tpu', {}):
-        with pytest.raises(exc, match=match):
-            Evaluator(torch.nn.Identity(), whole, device='cpu')
+    if refused:
+        with pytest.raises(ValueError, match=match):
+            pconfig.check_tpu_section(cfg)
+        with pytest.raises(ValueError, match=match):
+            create_model(whole, device='cpu')
+    else:
+        pconfig.check_tpu_section(cfg)
+        model = create_model(whole, device='cpu')
+        assert model.SegmentationHead_0.Conv_1.out_channels == 3
+    with pytest.raises(ValueError, match=match):
+        Evaluator(torch.nn.Identity(), whole, device='cpu')
 
 
 @pytest.mark.parametrize('cfg', [{'tpu': {'remat': True}},

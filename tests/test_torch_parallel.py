@@ -406,9 +406,8 @@ def test_create_dataloader_without_a_group_loads_whole_batches():
 
 @pytest.mark.parametrize('shape,exc', [
     ('auto', None), ({'data': 1}, None), ({'data': 8}, None),
-    ({'data': 2, 'model': 1}, None), ({'data': 2, 'model': 2},
-                                      NotImplementedError),
-    ({'model': 4}, NotImplementedError), ({'seq': 2}, ValueError),
+    ({'data': 2, 'model': 1}, None), ({'data': 2, 'model': 2}, None),
+    ({'model': 4}, None), ({'seq': 2}, ValueError),
     ([2], ValueError)], ids=str)
 def test_check_tpu_section(shape, exc):
     cfg = {'tpu': {'mesh_shape': shape}}
@@ -422,15 +421,19 @@ def test_check_tpu_section(shape, exc):
 @pytest.mark.parametrize('shape,exc', [
     ('auto', None), (None, None), ({'data': 1}, None),
     ({'data': 1, 'model': 1}, None), ({'data': 2}, ValueError),
-    ({'model': 2}, NotImplementedError), ([1], ValueError)], ids=str)
+    ({'model': 2}, ValueError), ([1], ValueError)], ids=str)
 def test_create_mesh_on_one_process(shape, exc):
+    """One process is a world of 1: a mesh of more ranks (a data axis of 2,
+    a model axis of 2) is refused for its size, as JAX refuses a mesh
+    larger than its devices."""
     if exc is None:
         m = mesh.create_mesh(mesh_shape=shape)
         assert (m.rank, m.size, m.shape, m.axis_names) == (
             0, 1, {'data': 1}, ('data',))
+        assert m.data is m and not mesh.has_model_axis(m)
     else:
-        with pytest.raises(exc, match='next slice' if
-                           exc is NotImplementedError else None):
+        with pytest.raises(exc, match='needs 2 devices, have 1' if
+                           isinstance(shape, dict) else None):
             mesh.create_mesh(mesh_shape=shape)
     with pytest.raises(ValueError, match='one process per device'):
         mesh.create_mesh(devices=['a', 'b'])

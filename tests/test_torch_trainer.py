@@ -494,7 +494,8 @@ def test_trainer_device_and_tpu_keys(tmp_path):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             ptrainer.AdverseWeatherTrainer(_Pixelwise(), TRAIN, VAL,
                                            dict(CONFIG, device='auto'), **kw)
-    with pytest.raises(NotImplementedError, match='next slice'):
+    # a model axis of 2 needs two ranks; one process is a world of 1
+    with pytest.raises(ValueError, match='needs 2 devices, have 1'):
         ptrainer.AdverseWeatherTrainer(
             _Pixelwise(), TRAIN, VAL,
             dict(CONFIG, tpu={'mesh_shape': {'data': 1, 'model': 2}}), **kw)
