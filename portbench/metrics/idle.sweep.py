@@ -1,0 +1,7 @@
+"""The device's idle share of the sweep's traced window."""
+
+from portbench.common.read import idle
+
+
+def read(ctx):
+    return idle(ctx)
