@@ -68,6 +68,7 @@ from ..metrics.iou import (confusion_matrix_per_weather_from_logits,
 from ..metrics.robustness import ADVERSE_WEATHERS, RobustnessMetrics
 from ..parallel.collectives import choose_tile_grid, psum_tree, tiled_forward
 from ..utils.config import check_tpu_section
+from ..utils.profiling import span, spanned
 from ..weather.corruption import WEATHER_CONDITIONS, draw_corruption
 
 logger = logging.getLogger(__name__)
@@ -172,15 +173,31 @@ class Evaluator:
                 draws: Mapping[str, torch.Tensor] | None = None
                 ) -> dict[str, torch.Tensor]:
         """Corrupt (draws from ``generator`` or given), normalise and run
-        the model in the compute dtype; returns its outputs. An image that
+        the model in the compute dtype; returns its outputs
+        (:meth:`prepare`, then :meth:`predict`)."""
+        return self.predict(self.prepare(images, labels, weather_ids,
+                                         generator, draws))
+
+    @torch.inference_mode()
+    def prepare(self, images: torch.Tensor, labels: torch.Tensor,
+                weather_ids: torch.Tensor,
+                generator: torch.Generator | None = None,
+                draws: Mapping[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        """The batch corrupted (draws from ``generator`` or given) and
+        normalised, in the compute dtype."""
+        prep = prepare_batch(images, labels, weather_ids, generator=generator,
+                             draws=draws, train=False, include_depth=False)
+        return prep['image'].to(self.dtype)
+
+    @torch.inference_mode()
+    def predict(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The model's outputs on prepared images ``x``. An image that
         :meth:`use_tiling` picks runs through ``tiled_forward``, its tiles
         spread over the mesh's ranks (each rank returns every image's
         stitched outputs); a model whose forward takes ``tile_info`` runs
         the tiles exactly (the halo resynced, SR attention and ASPP on the
         full map)."""
-        prep = prepare_batch(images, labels, weather_ids, generator=generator,
-                             draws=draws, train=False, include_depth=False)
-        x = prep['image'].to(self.dtype)
         h, w = x.shape[1], x.shape[2]
         if not self.use_tiling(h, w):
             return self.model(x)
@@ -209,14 +226,23 @@ class Evaluator:
         ``sample_mask`` ([B] 0/1) leaves rows out (padded ones)."""
         nw = len(WEATHER_CONDITIONS)
         seg = outputs['segmentation']
-        acc['cm'] += confusion_matrix_per_weather_from_logits(
-            seg, labels, self.num_classes, weather_ids, nw,
-            sample_mask=sample_mask)
-        acc['ece'] += ece_bin_update_per_weather(
-            seg, labels, weather_ids, nw, self.num_bins,
-            sample_mask=sample_mask, class_axis=-1)
+        with span('sweep.confusion'):
+            acc['cm'] += confusion_matrix_per_weather_from_logits(
+                seg, labels, self.num_classes, weather_ids, nw,
+                sample_mask=sample_mask)
+        with span('sweep.ece'):
+            acc['ece'] += ece_bin_update_per_weather(
+                seg, labels, weather_ids, nw, self.num_bins,
+                sample_mask=sample_mask, class_axis=-1)
         if 'segformer_seg' not in outputs:
             return
+        with span('sweep.disagreement'):
+            self._disagreement(acc, outputs, labels, sample_mask)
+
+    def _disagreement(self, acc, outputs, labels, sample_mask) -> None:
+        """Adds the members' disagreement against the errors of their mean
+        softmax's argmax into the histogram (and the exact modes'
+        buffers)."""
         dis, mean_probs = disagreement_and_mean_probs(
             [outputs['segformer_seg'], outputs['deeplabv3plus_seg']],
             class_axis=-1)
@@ -298,31 +324,23 @@ class Evaluator:
         acc = None
         n_images = 0
         t0 = time.time()
-        for i, batch in enumerate(test_loader):
-            images = torch.as_tensor(batch['image']).to(dev)
-            labels = torch.as_tensor(batch['label']).to(dev)
-            wids = torch.as_tensor(batch['weather_id']).to(dev)
-            n_images += images.shape[0]
-            d = None if draws is None else {k: v.to(dev)
-                                            for k, v in draws[i].items()}
-            images, labels, wids, d, mask = self._rows(images, labels, wids,
-                                                       d, generator)
-            rows = mesh_rows(self.mesh, images.shape[0])
-            if self.use_tiling(*images.shape[1:3]):
-                out = self.forward(images, labels, wids, draws=d)
-                out = {k: v[rows] for k, v in out.items()}
-            else:
-                out = self.forward(images[rows], labels[rows], wids[rows],
-                                   draws={k: v[rows] for k, v in d.items()})
-            images, labels, wids, mask = (t[rows] for t in (images, labels,
-                                                            wids, mask))
-            if acc is None:
-                capacity = (self._exact_capacity(test_loader,
-                                                 images.shape[:3])
-                            if self.auroc_mode == 'exact' else 0)
-                acc = self.init_acc(capacity)
-            self.accumulate(acc, out, labels, wids,
-                            mask if self.mesh.data.size > 1 else None)
+        for i, batch in enumerate(spanned(test_loader, 'sweep.load')):
+            with span('sweep.batch'):
+                acc = self._batch(acc, batch, i, test_loader, generator,
+                                  draws)
+                n_images += int(batch['image'].shape[0])
+        with span('sweep.finish'):
+            cms, ece, hist, exact_auroc = self._finish(acc)
+            elapsed = time.time() - t0
+            self.last_acc = {'cm': cms, 'ece': ece, 'auroc_hist': hist}
+            results = _results(cms, ece, hist, exact_auroc, self.num_classes)
+        return results | {
+            '_throughput_images_per_sec': n_images / max(elapsed, 1e-9),
+            '_eval_seconds': elapsed, '_num_images': n_images}
+
+    def _finish(self, acc):
+        """The sweep's end: the exact AUROC (exact modes), the accumulators
+        summed over the ranks and copied to the host."""
         if acc is None:
             acc = self.init_acc()
         exact_auroc = None
@@ -343,11 +361,40 @@ class Evaluator:
                            self.mesh.data)
         cms, ece, hist = (totals[k].cpu() for k in ('cm', 'ece',
                                                     'auroc_hist'))
-        elapsed = time.time() - t0
-        self.last_acc = {'cm': cms, 'ece': ece, 'auroc_hist': hist}
-        return _results(cms, ece, hist, exact_auroc, self.num_classes) | {
-            '_throughput_images_per_sec': n_images / max(elapsed, 1e-9),
-            '_eval_seconds': elapsed, '_num_images': n_images}
+        return cms, ece, hist, exact_auroc
+
+    def _batch(self, acc, batch, i, test_loader, generator, draws):
+        """One batch of :meth:`run`: to the device, this rank's rows
+        prepared (span ``sweep.prepare``), the model, the metrics added
+        into ``acc`` (made at the first batch); returns ``acc``."""
+        dev = self.device
+        with span('sweep.prepare'):
+            images = torch.as_tensor(batch['image']).to(dev)
+            labels = torch.as_tensor(batch['label']).to(dev)
+            wids = torch.as_tensor(batch['weather_id']).to(dev)
+            d = None if draws is None else {k: v.to(dev)
+                                            for k, v in draws[i].items()}
+            images, labels, wids, d, mask = self._rows(images, labels, wids,
+                                                       d, generator)
+            rows = mesh_rows(self.mesh, images.shape[0])
+            tiled = self.use_tiling(*images.shape[1:3])
+            if tiled:
+                x = self.prepare(images, labels, wids, draws=d)
+            else:
+                x = self.prepare(images[rows], labels[rows], wids[rows],
+                                 draws={k: v[rows] for k, v in d.items()})
+        out = self.predict(x)
+        if tiled:
+            out = {k: v[rows] for k, v in out.items()}
+        images, labels, wids, mask = (t[rows] for t in (images, labels,
+                                                        wids, mask))
+        if acc is None:
+            capacity = (self._exact_capacity(test_loader, images.shape[:3])
+                        if self.auroc_mode == 'exact' else 0)
+            acc = self.init_acc(capacity)
+        self.accumulate(acc, out, labels, wids,
+                        mask if self.mesh.data.size > 1 else None)
+        return acc
 
 
 def _results(cms, ece, hist, exact_auroc, num_classes) -> dict[str, Any]:

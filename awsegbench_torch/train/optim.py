@@ -37,6 +37,7 @@ import torch
 from ..parallel.collectives import all_reduce_
 from ..parallel.tensor import (full_optimizer_state_dict,
                                load_full_optimizer_state_dict_, shard_of)
+from ..utils.profiling import span
 
 
 def _sum_sq(grads) -> torch.Tensor:
@@ -81,16 +82,18 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.grad_clip and self.grad_clip > 0:
-            shards = [shard_of(p) for p in self.params]
-            mesh = next((s[1] for s in shards if s is not None), None)
-            clip_by_global_norm_([p.grad for p in self.params],
-                                 self.grad_clip,
-                                 [s is not None for s in shards], mesh)
-        self.inner.step()
+        with span('train.clip'):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.grad_clip and self.grad_clip > 0:
+                shards = [shard_of(p) for p in self.params]
+                mesh = next((s[1] for s in shards if s is not None), None)
+                clip_by_global_norm_([p.grad for p in self.params],
+                                     self.grad_clip,
+                                     [s is not None for s in shards], mesh)
+        with span('train.update'):
+            self.inner.step()
 
     def state_dict(self) -> dict[str, Any]:
         """The torch optimiser's state dict, every moment of a sharded

@@ -25,6 +25,7 @@ from ..core.precision import get_policy
 from ..data.pipeline import draw_augment, prepare_batch
 from ..losses.fog_density import FogDensityAwareLoss
 from ..parallel.tensor import is_sharded, shard_model_
+from ..utils.profiling import span
 from ..weather.corruption import draw_corruption
 from .optim import Optimizer, create_optimizer
 from .trainer import (draw_dropout_seed, fog_density_from_weather,
@@ -139,10 +140,26 @@ class TrainStep:
         global batch's rows. ``sample_mask`` ([B] 0/1) drops rows from the
         fog-density-aware loss's means. Returns the loss dict: the global
         batch's losses, on every rank."""
+        with span('train.step'):
+            with span('train.prepare'):
+                loss_fn, image, targets, fog, seeds, aspp_mask = \
+                    self._prepare(images_u8, labels, weather_ids, generator,
+                                  draws or {}, sample_mask, sharded)
+            return train_step(self.model, self.optimizer, loss_fn,
+                              self.policy, image, targets, fog,
+                              seeds.pop('seed', None), aspp_mask, generator,
+                              seeds, mesh=self.mesh)
+
+    def _prepare(self, images_u8, labels, weather_ids, generator, draws,
+                 sample_mask, sharded):
+        """:meth:`__call__`'s batch and draws on the device, this rank's
+        rows of them, the batch corrupted, augmented and normalised with
+        its targets, and the fog density and dropout seeds: what
+        ``train_step`` takes."""
         dev = self.device
         draws = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                      if isinstance(v, dict) else v.to(dev))
-                 for k, v in (draws or {}).items()}
+                 for k, v in draws.items()}
         images_u8, labels = images_u8.to(dev), labels.to(dev)
         weather_ids = weather_ids.to(dev)
         if sharded:
@@ -188,9 +205,6 @@ class TrainStep:
         targets = {'label': prep['label']}
         if self.include_depth:
             targets['depth'] = prep['depth']
-        return train_step(self.model, self.optimizer, loss_fn,
-                          self.policy, prep['image'], targets, fog,
-                          seeds.pop('seed', None),
-                          None if aspp_mask is None else aspp_mask[rows],
-                          generator, seeds, mesh=self.mesh)
+        return (loss_fn, prep['image'], targets, fog, seeds,
+                None if aspp_mask is None else aspp_mask[rows])
 

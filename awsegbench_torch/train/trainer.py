@@ -80,7 +80,7 @@ from ..parallel.collectives import all_reduce_, data_parallel, psum_tree
 from ..parallel.tensor import (average_replicated_, full_state_dict,
                                load_full_state_dict_)
 from ..utils.config import check_tpu_section, get_device_config
-from ..utils.profiling import ThroughputMeter, trace
+from ..utils.profiling import ThroughputMeter, span, spanned, trace
 from ..weather.corruption import WEATHER_CONDITIONS
 from ..weather.corruption import draw_corruption
 from .checkpoints import CheckpointManager
@@ -201,19 +201,24 @@ def train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable,
     data = mesh.data if mesh is not None else None
     world = data.size if data is not None else 1
     with data_parallel(data):
-        outputs = functional_call(
-            model, policy.cast_to_compute(model),
-            (image.to(policy.compute_dtype),),
-            {k: v for k, v in kwargs.items() if k in takes})
-        outputs = {k: v.float() for k, v in outputs.items()}
-        loss = loss_fn(outputs, targets, fog_density)
-        optimizer.zero_grad()
-        total = loss['total_loss']
-        (total / world if world > 1 else total).backward()
-    if world > 1:
-        all_reduce_grads(optimizer.params, data)
-    if mesh is not None:
-        average_replicated_(model, mesh)
+        with span('train.cast'):
+            weights = policy.cast_to_compute(model)
+        with span('train.forward'):
+            outputs = functional_call(
+                model, weights, (image.to(policy.compute_dtype),),
+                {k: v for k, v in kwargs.items() if k in takes})
+            outputs = {k: v.float() for k, v in outputs.items()}
+        with span('train.loss'):
+            loss = loss_fn(outputs, targets, fog_density)
+        with span('train.backward'):
+            optimizer.zero_grad()
+            total = loss['total_loss']
+            (total / world if world > 1 else total).backward()
+    if mesh is not None and mesh.size > 1:
+        with span('train.grad_sync'):
+            if world > 1:
+                all_reduce_grads(optimizer.params, data)
+            average_replicated_(model, mesh)
     optimizer.step()
     return {k: v.detach() for k, v in loss.items()}
 
@@ -447,7 +452,7 @@ class AdverseWeatherTrainer:
         tb_interval = (self.config.get('logging') or {}).get(
             'tb_interval_steps', 10)
         batches, bar = self._progress(
-            self._device_batches(self.train_loader),
+            spanned(self._device_batches(self.train_loader), 'train.load'),
             f'Epoch {self.current_epoch + 1}/{self.epochs}',
             self._sizes(self.train_loader))
         for i, (batch, mask) in enumerate(batches):

@@ -1,4 +1,7 @@
-"""Configuration management and observability."""
+"""Configuration management and observability.
+
+The JAX package's ``PhaseTimers`` has no counterpart: the port times its
+phases with ``profiling.span``, on the profiler's clock."""
 
 from .config import (
     Config,
@@ -11,7 +14,6 @@ from .config import (
     validate_config,
 )
 from .profiling import (
-    PhaseTimers,
     ThroughputMeter,
     enable_nan_checks,
     trace,
@@ -26,7 +28,6 @@ __all__ = [
     "setup_logging",
     "get_device_config",
     "check_tpu_section",
-    "PhaseTimers",
     "ThroughputMeter",
     "enable_nan_checks",
     "trace",

@@ -1,17 +1,21 @@
-"""Tracing, phase timers and throughput (counterpart of
-``awsegbench/utils/profiling.py``): an optional ``torch.profiler`` trace
-scope, per-phase wall timers, an images/s meter that waits for the device
-once when it stops, and a NaN-check switch."""
+"""Tracing and throughput (counterpart of ``awsegbench/utils/profiling.py``):
+an optional ``torch.profiler`` trace scope, the named spans the sweep and
+the train step open at their layer boundaries, an images/s meter that
+waits for the device once when it stops, and a NaN-check switch.
+
+The JAX package's ``PhaseTimers`` (wall-clock phase timers) has no
+counterpart: a span times a phase on the profiler's clock, beside the
+device's work."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Iterable, Iterator, Optional, TypeVar
 
 import torch
+from torch.profiler import record_function
 
 logger = logging.getLogger(__name__)
 
@@ -40,31 +44,32 @@ def trace(profile_dir: Optional[str]) -> Iterator[None]:
     logger.info(f"Profiler trace written to {profile_dir}")
 
 
-class PhaseTimers:
-    """Accumulating named wall-clock timers (data/compute/metrics phases)."""
+_NO_SPAN = contextlib.nullcontext()
+_END = object()
+T = TypeVar('T')
 
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+def span(name: str) -> ContextManager:
+    """``with span(name):`` marks the block on the host as the span
+    ``name`` in a ``torch.profiler`` trace (a ``record_function``: a
+    ``user_annotation`` event on the clock the device's intervals are
+    aligned to). With no profiler recording it is a shared context that
+    does nothing, at the cost of one flag check."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
 
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {name: {'total_s': self.totals[name],
-                       'count': self.counts[name],
-                       'mean_s': self.totals[name] / max(self.counts[name], 1)}
-                for name in self.totals}
 
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
+def spanned(items: Iterable[T], name: str) -> Iterator[T]:
+    """``items``, each ``next()`` on them inside the span ``name``: the
+    wait for a loader's next batch."""
+    it = iter(items)
+    while True:
+        with span(name):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
 
 
 class ThroughputMeter:

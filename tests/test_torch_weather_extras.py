@@ -277,6 +277,7 @@ NO_COUNTERPART = {
     'core': {'batch_sharding', 'replicated_sharding', 'per_sample_keys',
              'setup_compilation_cache'},
     'train': {'TrainState'},
+    'utils': {'PhaseTimers'},
 }
 RENAMED = {'ops': {'sr_attention_reference': 'sr_attention_plain'}}
 FACADES = ('', 'core', 'data', 'eval', 'losses', 'metrics', 'models', 'ops',
