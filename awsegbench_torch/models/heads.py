@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._device import const
 from ..ops.depthkernels_train import depth_stage1_fused_train
 from ..ops.headkernels import seg_head_fused
 from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
@@ -111,8 +112,9 @@ class BatchNorm(nn.Module):
         w = self._parameters['weight']
         m, cdt = self.momentum, w.dtype
         # JAX casts the Python momentum to the stats' dtype before the
-        # product (a weak-typed scalar); torch would multiply in f32
-        m_c = torch.tensor(m, dtype=cdt, device=w.device)
+        # product (a weak-typed scalar); torch would multiply in f32. A
+        # cached device constant: a fresh copy would wait for the card.
+        m_c = const(float, m, device=w.device, dtype=cdt)
         for buf, new in ((self.running_mean, mean), (self.running_var, var)):
             buf.copy_(buf.to(cdt) * m_c + (1.0 - m) * new.detach())
 
@@ -125,8 +127,8 @@ def rank_seed(seed: torch.Tensor | None, b: int) -> torch.Tensor | None:
     if seed is None or active_mesh() is None:
         return seed
     return torch.stack([seed.reshape(()).to(torch.int32),
-                        torch.tensor(first_row(b), dtype=torch.int32,
-                                     device=seed.device)])
+                        const(int, first_row(b), device=seed.device,
+                              dtype=torch.int32)])
 
 
 def hash_dropout(x: torch.Tensor, seed: torch.Tensor,

@@ -56,6 +56,7 @@ from awsegbench_torch.utils.config import check_tpu_section
 from helpers.torch_dist_worker import ToyDataset, narrow_ensemble
 from test_eval import _TinyEnsemble
 from test_torch_models import random_variables
+from test_torch_train_pieces import HostValues
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -489,6 +490,9 @@ def test_rank_seed_under_a_mesh():
     with col.data_parallel(mesh.DataMesh(1, 2)):
         got = rank_seed(seed, 3)
         assert (col.global_rows(3), col.first_row(3)) == (6, 3)
+        with HostValues() as made:      # the row is a cached constant
+            assert torch.equal(rank_seed(seed, 3), got)
+        assert made.count == 0
     assert got.tolist() == [5, 3] and got.dtype == torch.int32
     assert col.active_mesh() is None
 
