@@ -5,8 +5,9 @@
         --side program|control [--fault <name>] [--seconds <s>]
 
 ``program``: a run of the cell per seed (the window ``--seconds`` long),
-with ``faults.py``'s fault ``--fault`` planted in the port when one is
-named; ``control``: the reference fed fp8 operands in the program's place
+with the fault ``--fault`` planted in the port when one is named (one of
+the cell's driver's ``FAULTS``, planted by ``faults.py``); ``control``:
+the reference fed fp8 operands in the program's place
 (``reference/lowp.py``). One JSON line per seed with the numbers compared.
 The benchmark's own runs never run this.
 """
@@ -31,16 +32,19 @@ def main(argv=None) -> int:
     from portbench.common import guard
     bench = harness.manifest()
     c = harness.cell(args.workload, bench)
+    drv = harness.driver(c['spec']['driver'])
+    if args.fault is not None and args.fault not in drv.FAULTS:
+        p.error(f'--fault: the {c["spec"]["driver"]} driver has the faults '
+                f'{", ".join(drv.FAULTS)}')
     guard.require_cards(c['entry']['chips'])
     for seed in (int(s) for s in args.seeds.split(',')):
         t0 = time.time()
         if args.side == 'control':
-            drv = harness.driver(c['spec']['driver']).Driver(
+            numbers = drv.Driver(
                 config=c['config'], traffic=c['traffic'], seed=seed,
-                device='cuda', traced=False)
-            numbers = drv.control()
+                device='cuda', traced=False).control()
         else:
-            with faults.planted(args.fault):
+            with faults.planted(args.fault, c['config']):
                 out = harness.run(args.workload, seed, args.seconds, False,
                                   bench=bench)
             numbers = {k: v['value'] for k, v in out['checks'].items()}

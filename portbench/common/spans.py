@@ -1,7 +1,7 @@
 """What a span of the program costs the host: its host milliseconds per
 call and the device operations launched inside it per call. Reads only
-``Trace``'s public ``spans``, ``ops`` and ``launch``; returns None where
-the span never opened (a program without it).
+``Trace``'s public ``spans``, ``ops``, ``launch`` and ``span_ops``;
+returns None where the span never opened (a program without it).
 
 Neither reading rests on the device's timestamps: host ms comes from the
 host's spans, and an operation counts for the span open on the host when
@@ -12,7 +12,6 @@ profiler's fault hits a program without the spans alike."""
 
 from __future__ import annotations
 
-import bisect
 import statistics
 import sys
 from typing import Any, Mapping
@@ -26,22 +25,9 @@ LEAD_S = 1e-3
 SHORT = 0.9
 
 
-def _intervals(ctx: Mapping[str, Any], name: str) -> list[tuple]:
-    return sorted((s, e) for n, s, e in ctx['trace'].spans if n == name)
-
-
-def _launched(trace, spans: list[tuple]) -> list[int]:
-    """The device operations launched inside each of the sorted ``spans``."""
-    starts = [s for s, _ in spans]
-    counts = [0] * len(spans)
-    for *_, corr in trace.ops:
-        t = trace.launch.get(corr)
-        if t is None:
-            continue
-        i = bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t <= spans[i][1]:
-            counts[i] += 1
-    return counts
+def _launched(trace, name: str) -> list[int]:
+    """The device operations launched inside each span ``name``."""
+    return [len(ops) for ops in trace.span_ops(name)]
 
 
 def unsound(trace, counts: list[int]) -> str | None:
@@ -73,10 +59,10 @@ def _note(trace, counts: list[int]) -> None:
 def host_ms(ctx: Mapping[str, Any], name: str) -> float | None:
     """The mean host duration of the span ``name`` (once an iteration), in
     ms."""
-    spans = _intervals(ctx, name)
+    spans = sorted(ctx['trace'].span_intervals(name))
     if not spans:
         return None
-    _note(ctx['trace'], _launched(ctx['trace'], spans))
+    _note(ctx['trace'], _launched(ctx['trace'], name))
     return sum(e - s for s, e in spans) / len(spans) * 1e3
 
 
@@ -84,9 +70,8 @@ def ops_per_call(ctx: Mapping[str, Any], name: str) -> float | None:
     """The device operations (kernels, copies, sets) whose launch falls
     inside the span ``name`` (once an iteration) on the host, per call of
     it."""
-    spans = _intervals(ctx, name)
-    if not spans:
+    counts = _launched(ctx['trace'], name)
+    if not counts:
         return None
-    counts = _launched(ctx['trace'], spans)
     _note(ctx['trace'], counts)
-    return sum(counts) / len(spans)
+    return sum(counts) / len(counts)

@@ -17,6 +17,7 @@ busy time was a sum of kernel durations over one call.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import json
 import os
@@ -124,23 +125,28 @@ class Trace:
     def span_intervals(self, name: str) -> list[tuple[float, float]]:
         return [(s, e) for n, s, e in self.spans if n == name]
 
-    def span_device(self, name: str) -> tuple[float, int]:
-        """(device seconds of the operations launched inside the spans
-        ``name``, the number of those spans)."""
+    def span_ops(self, name: str) -> list[list[tuple]]:
+        """For each span ``name``, in order of its start, the device
+        operations launched on the host while it was open (the latest span
+        to open before the launch, if it had not closed yet)."""
         spans = sorted(self.span_intervals(name))
-        if not spans:
-            return 0.0, 0
-        import bisect
         starts = [s for s, _ in spans]
-        inside = []
-        for _, s, e, corr in self.ops:
-            t = self.launch.get(corr)
+        inside: list[list[tuple]] = [[] for _ in spans]
+        for op in self.ops:
+            t = self.launch.get(op[3])
             if t is None:
                 continue
             i = bisect.bisect_right(starts, t) - 1
             if i >= 0 and t <= spans[i][1]:
-                inside.append((s, e))
-        return length(union(inside)), len(spans)
+                inside[i].append(op)
+        return inside
+
+    def span_device(self, name: str) -> tuple[float, int]:
+        """(device seconds of the operations launched inside the spans
+        ``name``, the number of those spans)."""
+        per_span = self.span_ops(name)
+        return (length(union([(s, e) for ops in per_span
+                              for _, s, e, _ in ops])), len(per_span))
 
     def label_at(self, t: float) -> str:
         """The innermost span (other than the window) open on the host at

@@ -1,4 +1,6 @@
-"""The ensemble's forward FLOPs per image, from its configuration's shapes.
+"""A model's forward FLOPs per image, from its configuration's shapes: the
+counts of the ensemble's parts (MiT, the faithful heads, DeepLabV3+), which
+each model type's adapter (``portbench/models/``) sums for its model.
 
 Two FLOPs per multiply-add of every convolution, dense layer and attention
 product; elementwise work (norms, activations, softmax, resizes) is not
@@ -112,12 +114,10 @@ def deeplab(height: int, width: int, dl: Mapping[str, Any],
 
 
 def forward_flops(config: Mapping[str, Any], height: int, width: int) -> float:
-    """FLOPs of one image's ensemble forward at ``height`` × ``width``."""
-    model = config['model']
-    nc, depth = model['num_classes'], model['include_depth']
-    return (mit(height, width, config['segformer'])
-            + segformer_heads(height, width, config['segformer'], nc, depth)
-            + deeplab(height, width, config['deeplab'], nc, depth))
+    """FLOPs of one image's forward at ``height`` × ``width``: the sum the
+    adapter of the configuration's model type makes of the counts above."""
+    from ..models import adapter
+    return adapter(config).forward_flops(config, height, width)
 
 
 def train_flops(config: Mapping[str, Any], height: int, width: int) -> float:

@@ -36,6 +36,7 @@ from ..common.trace import set_span
 from .sweep import no_tf32, nothing
 
 KERNELS = ('sr_attention', 'seg_head')
+FAULTS = ('altered',)
 
 
 class Driver:
@@ -43,6 +44,9 @@ class Driver:
 
     def __init__(self, config: Mapping[str, Any], traffic: Mapping[str, Any],
                  seed: int, device: str, traced: bool) -> None:
+        if config['model']['type'] != 'ensemble':
+            raise ValueError('the serve driver runs the ensemble only, not '
+                             f"model type {config['model']['type']!r}")
         self.config, self.traffic = config, traffic
         self.seed, self.device, self.traced = seed, torch.device(device), traced
         self.attempted = self.failed = 0

@@ -2,29 +2,31 @@
 batches.
 
 Set-up makes the weights (bf16, as the sweep runs them) and a pool of host
-batches with their corruption draws from the seed, builds the port's
-ensemble and ``Evaluator`` (``auroc_mode`` from the traffic) and sweeps
-the pool's first batches (every shape and kernel built). The window is one
-``Evaluator.run`` over the pool, round and round, until the window's
-seconds have passed; it ends after the run's final reduction and a
-synchronise. Images per second are the images swept over the window's
-seconds.
+batches with their corruption draws from the seed, builds the port's model
+(any type with an adapter, ``portbench/models/``) and ``Evaluator``
+(``auroc_mode`` from the traffic) and sweeps the pool's first batches
+(every shape and kernel built). The window is one ``Evaluator.run`` over
+the pool, round and round, until the window's seconds have passed; it
+ends after the run's final reduction and a synchronise. Images per second
+are the images swept over the window's seconds.
 
 The check, of what the window produced:
 
 * ``logits_rel``: for a sample of the window's batches drawn from the
-  seed, the ensemble's and both members' logits as ``accumulate`` received
-  them (copied aside in the window into buffers laid out alike) against
-  the plain reference's f32 forward of the same uint8 batch and draws
-  (TF32 off, in blocks of rows): the widest relative L2 distance.
-  Corruption, both members (K1, K2 and the library convs) and the
-  ensemble's combination are in it.
+  seed, the adapter's ``OUTPUTS`` (the ensemble's and both members'
+  logits; a single model's) as ``accumulate`` received them (copied aside
+  in the window into buffers laid out alike) against the plain reference's
+  f32 forward of the same uint8 batch and draws (TF32 off, in blocks of
+  rows): the widest relative L2 distance. Corruption, the model (K1, K2
+  and the library convs) and the ensemble's combination are in it.
 * ``metrics_exact``: for the same batches, what ``accumulate`` added to the
-  accumulators (confusion matrices, ECE bin counts and accuracy sums, the
-  disagreement histogram) against the reference's metric code on the
-  logits the program produced: the count of values that differ (exact).
+  accumulators (confusion matrices, ECE bin counts and accuracy sums, and
+  with the adapter's two ``MEMBERS`` the disagreement histogram) against
+  the reference's metric code on the logits the program produced: the
+  count of values that differ (exact).
 * ``counts_exact``: over the whole window, the pixels each accumulator
-  counted against the valid pixels of the batches swept (exact).
+  (the histogram only with members) counted against the valid pixels of
+  the batches swept (exact).
 
 The accumulated sums are not compared against the reference's own forward:
 with random weights the logits are nearly tied, and the sums the program's
@@ -42,13 +44,13 @@ from ..common import port, weights
 from ..common import traffic as gen
 from ..common.clock import Clock
 from ..common.trace import set_span
+from ..models import adapter
 
 KERNELS = ('sr_attention', 'seg_head', 'splat')
+FAULTS = ('unchanged', 'half_batch', 'altered')
 # the sweep's disagreement histogram: 2^20 log-spaced bins of the mutual
 # information over [-0.01, 0.75)
 AUROC_BINS, AUROC_RANGE, N_ECE_BINS = 1 << 20, (-0.01, 0.75), 15
-LOGITS = ('segmentation', 'segformer_seg', 'deeplabv3plus_seg')
-ACCS = ('cm', 'ece', 'auroc_hist')
 
 
 class Driver:
@@ -60,6 +62,10 @@ class Driver:
         self.seed, self.device, self.traced = seed, torch.device(device), traced
         self.attempted = self.failed = 0
         self.notes: list[str] = []
+        self.adapter = adapter(config)
+        self.members = self.adapter.MEMBERS
+        # the accumulators one batch adds to: the histogram only with members
+        self.accs = ('cm', 'ece') + (('auroc_hist',) if self.members else ())
 
     @property
     def num_classes(self) -> int:
@@ -104,8 +110,8 @@ class Driver:
         self._keep_aside(self.ev)
         if self.traced:
             set_span(self.ev, 'accumulate', 'sweep.accumulate')
-            set_span(self.ev.model.segformer, 'forward', 'sweep.segformer')
-            set_span(self.ev.model.deeplabv3plus, 'forward', 'sweep.deeplab')
+            for obj, attr, name in self.adapter.spans(self.ev.model):
+                set_span(obj, attr, name)
         for i in range(t['warmup']):
             self.ev.run(self.pool[i:i + 1], seed=0,
                         draws=self.draws[i:i + 1])
@@ -123,15 +129,15 @@ class Driver:
                 self.buffers = {i: {k: torch.empty_strided(
                     outputs[k].size(), outputs[k].stride(),
                     dtype=outputs[k].dtype, device=outputs[k].device)
-                    for k in LOGITS} for i in self.sample}
+                    for k in self.adapter.OUTPUTS} for i in self.sample}
             i = self.calls
             if i in self.buffers:
-                before = {k: acc[k].clone() for k in ACCS}
-                for k in LOGITS:
+                before = {k: acc[k].clone() for k in self.accs}
+                for k in self.adapter.OUTPUTS:
                     self.buffers[i][k].copy_(outputs[k])
             out = accumulate(acc, outputs, labels, weather_ids, sample_mask)
             if i in self.buffers:
-                self.keep[i] = {k: acc[k] - before[k] for k in ACCS}
+                self.keep[i] = {k: acc[k] - before[k] for k in self.accs}
             if i >= 0:
                 self.calls += 1
             return out
@@ -195,8 +201,9 @@ class Driver:
                     {n: v[sl] for n, v in draws.items()})
                 with Fp8Operands() if fp8 else nothing():
                     out = self._ref(prep['image'])
-                parts.append({n: out[n] for n in LOGITS})
-        return {n: torch.cat([p[n] for p in parts]) for n in LOGITS}
+                parts.append({n: out[n] for n in self.adapter.OUTPUTS})
+        return {n: torch.cat([p[n] for p in parts])
+                for n in self.adapter.OUTPUTS}
 
     def check(self, limits: Mapping[str, float]) -> dict[str, tuple]:
         del self.ev, self.model
@@ -211,14 +218,16 @@ class Driver:
             k = i % n
             got = self.buffers[i]
             rel = max(rel, logits_rel(got, self.reference_logits(k)))
-            exact += metrics_mismatch(self.keep[i], got, self.pool[k],
-                                      self.device, self.num_classes)
+            exact += metrics_mismatch(self.keep[i], got, self.members,
+                                      self.pool[k], self.device,
+                                      self.num_classes)
         clock('reference')
         valid = [int((b['label'] != 255).sum()) for b in self.pool]
         want = sum(c * v for c, v in zip(self.counts, valid))
-        counted = (int(self.acc['cm'].sum()),
-                   int(self.acc['ece'][..., 0].sum()),
-                   int(self.acc['auroc_hist'].sum()))
+        counted = [int(self.acc['cm'].sum()),
+                   int(self.acc['ece'][..., 0].sum())]
+        if self.members:
+            counted.append(int(self.acc['auroc_hist'].sum()))
         self.notes.append(f'window: {sum(self.counts)} batches, '
                           f'{self.attempted} images in {self.window_s!r} s; '
                           f'sampled batches {sorted(self.keep)}, missing '
@@ -240,30 +249,29 @@ class Driver:
 
 def logits_rel(got: Mapping[str, torch.Tensor],
                want: Mapping[str, torch.Tensor]) -> float:
-    """The widest ‖got − want‖ / ‖want‖ over the ensemble's and the
-    members' logits."""
+    """The widest ‖got − want‖ / ‖want‖ over the logits in ``want``."""
     return max(float((got[k].double() - want[k].double()).norm()
-                     / want[k].double().norm()) for k in LOGITS)
+                     / want[k].double().norm()) for k in want)
 
 
 def metrics_mismatch(added: Mapping[str, torch.Tensor],
-                     logits: Mapping[str, torch.Tensor],
+                     logits: Mapping[str, torch.Tensor], members,
                      batch: Mapping[str, torch.Tensor], device,
                      num_classes: int) -> int:
     """How many of the integer values that ``accumulate`` added for one
-    batch (confusion matrices, ECE bin counts and accuracy sums, the
-    histogram) differ from the reference's metric code on the same
-    logits."""
+    batch (confusion matrices, ECE bin counts and accuracy sums, and the
+    histogram of the ``members``' logits where there are two) differ from
+    the reference's metric code on the same logits."""
     from ..reference.metrics import accumulators
-    want = accumulators(logits['segmentation'], logits['segformer_seg'],
-                        logits['deeplabv3plus_seg'],
-                        batch['label'].to(device),
+    want = accumulators(logits['segmentation'], batch['label'].to(device),
                         batch['weather_id'].to(device), num_classes,
-                        gen.N_WEATHERS, N_ECE_BINS, AUROC_BINS, AUROC_RANGE)
-    pairs = ((added['cm'], want['cm']),
+                        gen.N_WEATHERS, N_ECE_BINS, AUROC_BINS, AUROC_RANGE,
+                        members=[logits[k] for k in members])
+    pairs = [(added['cm'], want['cm']),
              (added['ece'][..., 0], want['ece'][..., 0]),
-             (added['ece'][..., 2], want['ece'][..., 2]),
-             (added['auroc_hist'], want['hist']))
+             (added['ece'][..., 2], want['ece'][..., 2])]
+    if members:
+        pairs.append((added['auroc_hist'], want['hist']))
     return int(sum(int((a.double().to(device) - b.double()).abs().sum())
                    for a, b in pairs))
 

@@ -37,6 +37,7 @@ from .sweep import no_tf32, nothing
 
 KERNELS = ('sr_attention', 'sr_attention_bwd', 'seg_head', 'seg_head_train',
            'depth_stage1_train', 'pp_adjoint', 'splat')
+FAULTS = ('unchanged', 'half_batch', 'altered')
 CHECK_STEPS = 3
 BETA1 = 0.9
 LR, WEIGHT_DECAY, CLIP = 1e-3, 1e-4, 1.0
@@ -86,6 +87,9 @@ class Driver:
 
     def __init__(self, config: Mapping[str, Any], traffic: Mapping[str, Any],
                  seed: int, device: str, traced: bool) -> None:
+        if config['model']['type'] != 'ensemble':
+            raise ValueError('the train driver runs the ensemble only, not '
+                             f"model type {config['model']['type']!r}")
         self.config, self.traffic = config, traffic
         self.seed, self.device, self.traced = seed, torch.device(device), traced
         self.attempted = self.failed = 0

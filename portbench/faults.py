@@ -1,15 +1,18 @@
 """Faults planted in the port's timed path, for the tests and for the
-readings that set a cell's limits: each must make ``correct`` false.
+readings that set a cell's limits: each must make ``correct`` false. Each
+driver names the faults its cells can have (``drivers/<kind>.py``'s
+``FAULTS``); this module plants them.
 
 * ``unchanged``: the step returns its state unchanged (the sweep's
   ``accumulate`` adds nothing; the train step's optimiser moves nothing).
 * ``half_batch``: half of each batch is left out and the mean taken over
   the rest (the sweep accumulates the first half of the rows; the train
   step's forward, loss and backward see the first half).
-* ``altered``: an answer is altered where it is produced (the ensemble's
+* ``altered``: an answer is altered where it is produced (the model's
   logits of each batch's first row come out 1.5 times too large: the
   sweep's confidences, the train step's loss and a served request's
-  logits are wrong).
+  logits are wrong). The model is the class of the port's model that the
+  configuration builds (``common/port.py::skeleton``).
 
 One card runs each cell, so no fault of the exchange between cards
 applies.
@@ -20,10 +23,6 @@ from __future__ import annotations
 import contextlib
 import functools
 
-FAULTS = {'sweep': ('unchanged', 'half_batch', 'altered'),
-          'train': ('unchanged', 'half_batch', 'altered'),
-          'serve': ('altered',)}
-
 
 def _alter_first_row(out):
     out = dict(out)
@@ -33,10 +32,10 @@ def _alter_first_row(out):
     return out
 
 
-def _patches(name: str):
-    """(object, attribute, replacement) of the fault ``name``."""
+def _patches(name: str, config):
+    """(object, attribute, replacement) of the fault ``name`` in a run of
+    ``config``."""
     from awsegbench_torch.eval.evaluator import Evaluator
-    from awsegbench_torch.models.ensemble import EnsembleModel
     from awsegbench_torch.serving import ServingModel
     from awsegbench_torch.train import optim, step
     if name == 'unchanged':
@@ -63,7 +62,9 @@ def _patches(name: str):
         return [(Evaluator, 'accumulate', acc_half),
                 (step, 'train_step', step_half)]
     if name == 'altered':
-        forward, predict = EnsembleModel.forward, ServingModel.predict
+        from .common.port import skeleton
+        model_class = type(skeleton(config))
+        forward, predict = model_class.forward, ServingModel.predict
 
         @functools.wraps(forward)           # the train step reads its keywords
         def forward_altered(self, *a, **k):
@@ -72,18 +73,19 @@ def _patches(name: str):
         @functools.wraps(predict)
         def predict_altered(self, *a, **k):
             return _alter_first_row(predict(self, *a, **k))
-        return [(EnsembleModel, 'forward', forward_altered),
+        return [(model_class, 'forward', forward_altered),
                 (ServingModel, 'predict', predict_altered)]
     raise ValueError(f'unknown fault {name!r}')
 
 
 @contextlib.contextmanager
-def planted(name: str | None):
-    """Plants the fault ``name`` (None: none) in the port while entered."""
+def planted(name: str | None, config):
+    """Plants the fault ``name`` (None: none) in the port, for a run of the
+    configuration ``config``, while entered."""
     if name is None:
         yield
         return
-    patches = _patches(name)
+    patches = _patches(name, config)
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
     for obj, attr, fn in patches:
         setattr(obj, attr, fn)

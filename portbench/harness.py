@@ -1,12 +1,14 @@
 """One run of one cell: find its files by name, set up, measure, check.
 
 Everything a cell is made of is found by the names in ``BENCHMARK.json``:
-the workload's entry names its configuration (``configs/<config>.json``)
-and its traffic (``traffic/<traffic>.json``); the cell's own file
+the workload's entry names its configuration (``configs/<config>.json``,
+whose ``model.type`` names its adapter, ``models/<type>.py``) and its
+traffic (``traffic/<traffic>.json``); the cell's own file
 (``workloads/<name>.json``) names its driver (``drivers/<driver>.py``) and
 holds the limits of its checks; each per-layer metric is a reader in
-``metrics/<name>.py``. Adding a configuration, a mix, a cell or a metric
-adds files and entries and edits none.
+``metrics/<name>.py``. Adding a model type, a configuration, a mix, a cell
+or a metric adds files and entries, and edits nothing but the
+``workloads`` lists of the metrics the new cell reports.
 """
 
 from __future__ import annotations

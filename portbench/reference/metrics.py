@@ -3,11 +3,11 @@ definitions the port's ``Evaluator.accumulate`` keeps (the JAX package's),
 in the same f32 arithmetic so that their integer values agree exactly on
 the same logits: per weather, the confusion matrix of the ensemble's
 argmax; the ECE bins (count, Σ confidence, Σ accuracy) of its f32 softmax,
-bin ``ceil(conf·bins) − 1``; over all weathers the (positive, negative)
-histogram of the members' mutual information H(mean p) − mean H(p_i) (1e-8
-inside the logs) on log-spaced bins of ``log(mi − lo + 1e-9)``, positives
-being the pixels where the argmax of the members' mean softmax is wrong.
-Label 255 counts nowhere."""
+bin ``ceil(conf·bins) − 1``; for an ensemble, over all weathers the
+(positive, negative) histogram of the members' mutual information
+H(mean p) − mean H(p_i) (1e-8 inside the logs) on log-spaced bins of
+``log(mi − lo + 1e-9)``, positives being the pixels where the argmax of the
+members' mean softmax is wrong. Label 255 counts nowhere."""
 
 from __future__ import annotations
 
@@ -16,14 +16,14 @@ import torch
 IGNORE = 255
 
 
-def accumulators(seg: torch.Tensor, seg_a: torch.Tensor,
-                 seg_b: torch.Tensor, labels: torch.Tensor,
+def accumulators(seg: torch.Tensor, labels: torch.Tensor,
                  weather_ids: torch.Tensor, num_classes: int,
                  n_weathers: int, num_bins: int, hist_bins: int,
-                 hist_range: tuple[float, float]) -> dict[str, torch.Tensor]:
-    """One batch's {cm [W, C, C] int64, ece [W, bins, 3] f64, hist
-    [hist_bins, 2] int64} from NHWC logits (the ensemble's and its two
-    members'), labels [B, H, W] and weather ids [B]."""
+                 hist_range: tuple[float, float],
+                 members=()) -> dict[str, torch.Tensor]:
+    """One batch's {cm [W, C, C] int64, ece [W, bins, 3] f64} from NHWC
+    logits ``seg``, labels [B, H, W] and weather ids [B], and with the two
+    ``members``' NHWC logits (an ensemble's) hist [hist_bins, 2] int64."""
     c = num_classes
     per = labels[0].numel()
     lab = labels.reshape(-1).long()
@@ -47,9 +47,13 @@ def accumulators(seg: torch.Tensor, seg_a: torch.Tensor,
             0, joint, conf[keep].double()),
         torch.bincount(joint, weights=(pred_p == lab)[keep].double(),
                        minlength=n)], dim=1)
+    out = {'cm': cm.reshape(n_weathers, c, c),
+           'ece': ece.reshape(n_weathers, num_bins, 3)}
+    if not members:
+        return out
 
     probs = torch.stack([torch.softmax(s, dim=-1, dtype=torch.float32)
-                         for s in (seg_a, seg_b)])
+                         for s in members])
     mean = probs.mean(dim=0)
     mean_entropy = -(mean * torch.log(mean + 1e-8)).sum(dim=-1)
     member_entropy = -(probs * torch.log(probs + 1e-8)).sum(dim=-1)
@@ -67,5 +71,4 @@ def accumulators(seg: torch.Tensor, seg_a: torch.Tensor,
     live = lab != IGNORE
     hist = torch.bincount((2 * idx + (~wrong).long())[live],
                           minlength=2 * hist_bins).reshape(hist_bins, 2)
-    return {'cm': cm.reshape(n_weathers, c, c),
-            'ece': ece.reshape(n_weathers, num_bins, 3), 'hist': hist}
+    return out | {'hist': hist}

@@ -29,3 +29,34 @@ def every_cell():
                                        'traffic': spec['traffic'],
                                        'chips': 1, 'why': spec['why']})
     return bench
+
+
+def single_configs() -> dict[str, dict]:
+    """The factory's single-model types as configuration files: SegFormer-B0
+    and DeepLabV3+ R50 alone, each with its size section of
+    ``ensemble-b0-r50.json``."""
+    import json
+    from portbench import harness
+    ens = json.loads((harness.HERE / 'configs' / 'ensemble-b0-r50.json')
+                     .read_text())
+    m = ens['model']
+    common = {'precision': ens['precision'], 'reduced': [],
+              'assumed': {'weights': ens['assumed']['weights'],
+                          'classes': ens['assumed']['classes']}}
+    return {
+        'segformer-b0': {
+            'name': 'segformer-b0',
+            'source': 'https://arxiv.org/abs/2105.15203 (nvidia/mit-b0)',
+            'model': {'type': 'segformer', 'num_classes': m['num_classes'],
+                      'include_depth': m['include_depth'],
+                      'head_mode': m['head_mode'],
+                      'segformer_variant': m['segformer_variant']},
+            'segformer': ens['segformer'], **common},
+        'deeplabv3plus-r50': {
+            'name': 'deeplabv3plus-r50',
+            'source': 'https://arxiv.org/abs/1802.02611 (DeepLabV3+ R50, '
+                      'OS16)',
+            'model': {'type': 'deeplabv3plus',
+                      'num_classes': m['num_classes'],
+                      'include_depth': m['include_depth']},
+            'deeplab': ens['deeplab'], **common}}

@@ -11,6 +11,7 @@ from portbench import harness
 from portbench.common import port, weights
 from portbench.counts import flops, roofline
 from portbench.reference import model as ref_model
+from portbench.tests.conftest import single_configs
 
 
 def test_bound_is_the_larger():
@@ -52,7 +53,9 @@ def test_upsample_conv_by_hand():
 
 def upsample_convs(cfg, height, width):
     """The (phase-form, full-resolution) FLOPs of the faithful heads'
-    upsample-convs at ``height`` × ``width``."""
+    upsample-convs at ``height`` × ``width`` (none without SegFormer)."""
+    if 'segformer' not in cfg:
+        return 0.0, 0.0
     sf, r = cfg['segformer'], 32
     cin = sf['hidden_sizes'][-1]
     outs = [sf['seg_head_hidden'], sf['depth_head_hidden']]
@@ -62,17 +65,28 @@ def upsample_convs(cfg, height, width):
     return phase, full
 
 
-@pytest.mark.parametrize('variant', ['b0', 'b1'])
-def test_forward_flops_match_torch_counter(variant):
-    """The analytic count equals torch's FLOP counter over the plain
-    reference's forward at 64×128, once the faithful heads' upsample-convs
-    are taken at full resolution, as the reference computes them (the
-    count takes their phase form, checked by hand above)."""
+def config_of(variant):
+    """The ensemble's configuration at MiT ``variant`` ('b0', 'b1'), or a
+    single-model configuration by name."""
+    if variant in single_configs():
+        return single_configs()[variant]
     cfg = json.loads((harness.HERE / 'configs' / 'ensemble-b0-r50.json')
                      .read_text())
     if variant == 'b1':
         cfg['model']['segformer_variant'] = 'b1'
         cfg['segformer']['hidden_sizes'] = [64, 128, 320, 512]
+    return cfg
+
+
+@pytest.mark.parametrize('variant', ['b0', 'b1', 'segformer-b0',
+                                     'deeplabv3plus-r50'])
+def test_forward_flops_match_torch_counter(variant):
+    """The analytic count (the sum the model type's adapter makes) equals
+    torch's FLOP counter over the plain reference's forward at 64×128, once
+    the faithful heads' upsample-convs are taken at full resolution, as the
+    reference computes them (the count takes their phase form, checked by
+    hand above)."""
+    cfg = config_of(variant)
     state = weights.make_state(weights.shapes_of(port.skeleton(cfg)), 0,
                                'cpu')
     model = ref_model.build(cfg, state, 'cpu')
@@ -82,3 +96,19 @@ def test_forward_flops_match_torch_counter(variant):
     phase, full = upsample_convs(cfg, 64, 128)
     assert flops.forward_flops(cfg, 64, 128) - phase + full == pytest.approx(
         counter.get_total_flops(), rel=1e-3)
+
+
+def test_ensemble_is_the_sum_of_its_members():
+    ens = config_of('b0')
+    assert flops.forward_flops(ens, 512, 1024) == (
+        flops.forward_flops(config_of('segformer-b0'), 512, 1024)
+        + flops.forward_flops(config_of('deeplabv3plus-r50'), 512, 1024))
+
+
+@pytest.mark.parametrize('name,gflops', [('ensemble-b0-r50', 271.4),
+                                         ('ensemble-b5-r50', 573.5)])
+def test_flops_per_image_stay(name, gflops):
+    """The counts the cells' ``mfu`` readers divide by, at 512×1024."""
+    cfg = json.loads((harness.HERE / 'configs' / f'{name}.json').read_text())
+    assert flops.forward_flops(cfg, 512, 1024) / 1e9 == pytest.approx(
+        gflops, abs=0.05)

@@ -3,6 +3,7 @@ names compared whole: the port's name begins with the JAX package's), and
 the reference imports nothing of the port."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 
 from portbench import harness
 from portbench.common.guard import FORBIDDEN, forbidden_modules
+from portbench.tests.conftest import single_configs
 
 SOURCES = sorted(p for p in harness.HERE.rglob('*.py')
                  if 'tests' not in p.relative_to(harness.HERE).parts)
@@ -28,6 +30,19 @@ def imported(path: Path) -> set[str]:
     return names
 
 
+def relative(path: Path) -> set[str]:
+    """The modules ``path``'s relative imports name, resolved against the
+    package that ``path`` lies in."""
+    package = ('portbench',) + path.parent.relative_to(harness.HERE).parts
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            base = package[:len(package) - node.level + 1]
+            names.add('.'.join(base + ((node.module,) if node.module
+                                       else ())))
+    return names
+
+
 @pytest.mark.parametrize('path', SOURCES,
                          ids=lambda p: str(p.relative_to(harness.HERE)))
 def test_no_jax(path):
@@ -36,11 +51,46 @@ def test_no_jax(path):
 
 @pytest.mark.parametrize('path', sorted((harness.HERE / 'reference')
                                         .rglob('*.py')),
-                         ids=lambda p: p.name)
+                         ids=lambda p: str(p.relative_to(harness.HERE)))
 def test_reference_imports_nothing_of_the_port(path):
     assert imported(path) <= {'torch', 'numpy', 'math', 'functools',
                               'typing', '__future__', 're', 'logging',
-                              'contextlib'}
+                              'contextlib', 'importlib'}
+    assert all(n == 'portbench.reference'
+               or n.startswith('portbench.reference.')
+               for n in relative(path)), relative(path)
+
+
+CONFIGS = [*(json.loads(p.read_text()) for p in
+             sorted((harness.HERE / 'configs').glob('*.json'))),
+           *single_configs().values()]
+
+
+@pytest.mark.parametrize('config', CONFIGS, ids=lambda c: c['name'])
+def test_reference_builds_without_the_port(config):
+    """A configuration's reference, built and run in a fresh process, loads
+    no module of the port and none of the benchmark outside
+    ``reference/``: the builder of its model type picks the reference's
+    classes alone."""
+    code = '''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from portbench.reference import model as ref_model
+config = json.loads(sys.argv[2])
+state = {k: torch.ones(v.shape, dtype=v.dtype)
+         for k, v in ref_model.skeleton(config).state_dict().items()}
+with torch.no_grad():
+    ref_model.build(config, state, 'cpu')(torch.zeros(1, 64, 128, 3))
+print(sorted(m for m in sys.modules
+             if m.split('.')[0] in ('awsegbench_torch', 'awsegbench')
+             or m.startswith('portbench.')
+             and not m.startswith('portbench.reference')))
+'''
+    out = subprocess.run([sys.executable, '-c', code, str(harness.ROOT),
+                          json.dumps(config)], capture_output=True,
+                         text=True, check=True, cwd=harness.ROOT)
+    assert out.stdout.strip().splitlines()[-1] == '[]'
 
 
 def test_names_compared_whole():

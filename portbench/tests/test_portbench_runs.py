@@ -7,7 +7,7 @@ fault planted in the timed path makes ``correct`` false."""
 import pytest
 
 from portbench import faults, harness
-from portbench.tests.conftest import TINY, every_cell
+from portbench.tests.conftest import TINY, every_cell, single_configs
 
 BENCH = every_cell()
 CELLS = [w['name'] for w in BENCH['workloads']]
@@ -48,9 +48,10 @@ def test_control_is_not_correct(cell):
 
 
 @pytest.mark.parametrize('cell,fault', [(c, f) for c in CELLS
-                                        for f in faults.FAULTS[kind(c)]])
+                                        for f in harness.driver(kind(c))
+                                        .FAULTS])
 def test_fault_is_not_correct(cell, fault):
-    with faults.planted(fault):
+    with faults.planted(fault, harness.cell(cell, BENCH)['config']):
         out = run(cell, precision='fp32')
     assert not out['correct'], (fault, out['checks'])
 
@@ -68,3 +69,13 @@ def test_traced_run_reports_its_metrics(cell):
     for m in harness.metrics_for(BENCH, 'per_layer', cell, e2e):
         assert m['name'] not in out['metrics'] or m['unit'] != '%' or \
             0.0 <= out['metrics'][m['name']]['value'] <= 100.0
+
+
+@pytest.mark.parametrize('driver', ['train', 'serve'])
+def test_ensemble_drivers_refuse_another_type(driver):
+    """The train and serve drivers run the ensemble alone: another type is
+    refused by name before set-up."""
+    config = single_configs()['segformer-b0']
+    with pytest.raises(ValueError, match="ensemble only.*'segformer'"):
+        harness.driver(driver).Driver(config=config, traffic={}, seed=0,
+                                      device='cpu', traced=False)

@@ -116,3 +116,62 @@ def test_host_and_launch_readers_note_an_unsound_trace(metric, fault,
     # a program without the span reads None and notes nothing
     assert read({'trace': _trace('not.' + span, lost=(3, 7))}) is None
     assert capsys.readouterr().err == ''
+
+
+def _span_device_before(trace, name):
+    """``Trace.span_device`` as it read before ``span_ops``: its own walk
+    over the operations."""
+    import bisect
+    from portbench.common.trace import length, union
+    spans = sorted(trace.span_intervals(name))
+    if not spans:
+        return 0.0, 0
+    starts = [s for s, _ in spans]
+    inside = []
+    for _, s, e, corr in trace.ops:
+        t = trace.launch.get(corr)
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            inside.append((s, e))
+    return length(union(inside)), len(spans)
+
+
+def _launched_before(trace, name):
+    """``spans.py``'s count of the operations launched inside each span as
+    it read before ``span_ops``: a walk of its own."""
+    import bisect
+    spans = sorted(trace.span_intervals(name))
+    starts = [s for s, _ in spans]
+    counts = [0] * len(spans)
+    for *_, corr in trace.ops:
+        t = trace.launch.get(corr)
+        if t is None:
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= spans[i][1]:
+            counts[i] += 1
+    return counts
+
+
+@pytest.mark.parametrize('variant', [{}, {'early': 25}, {'early': 53},
+                                     {'lost': (3, 7)}, {'lost': (1, 2, 6)}],
+                         ids=['sound', 'early25', 'early53', 'lost37',
+                              'lost126'])
+def test_span_ops_reads_as_the_two_walks_did(variant):
+    """``Trace.span_ops`` is the one attribution of launches to spans: the
+    device seconds of ``span_device`` and the counts of ``spans.py`` read
+    from it equal the two walks it replaced, on the hand-built trace and
+    its shifted and lossy forms, for the span, a span it overlaps and a
+    span that never opened."""
+    trace = _trace('a', **variant)
+    for name in ('a', 'other', 'never'):
+        per_span = trace.span_ops(name)
+        assert trace.span_device(name) == _span_device_before(trace, name)
+        assert [len(o) for o in per_span] == _launched_before(trace, name)
+        assert spans._launched(trace, name) == _launched_before(trace, name)
+    # the first call of 'a' (10-40 µs) launched ops 1, 2 and the copy 6;
+    # op 4 (launched at 45 µs) falls in 'other', not in the closed call
+    assert [sorted(op[3] for op in ops) for ops in trace.span_ops('a')][0] \
+        == [c for c in (1, 2, 6) if c not in variant.get('lost', ())]
