@@ -91,7 +91,9 @@ class Evaluator:
     ``evaluation.exact_auroc_max_bytes`` (above it ``'exact'`` falls back to
     the histogram, with a warning), ``evaluation.spatial_tiling``
     (``'on'``, ``'off'``, or ``'auto'``: tile images of at least 2048×1024
-    pixels when the mesh has more than one rank), ``evaluation.tile_size``
+    pixels when the mesh has more than one rank, and never a model that
+    is not ``tileable``, Mask2Former, which ``'on'`` refuses),
+    ``evaluation.tile_size``
     (``'auto'``: ``choose_tile_grid`` over the mesh's size, or [h, w]),
     ``evaluation.tile_halo`` (default 128), ``tpu.mesh_shape`` (the mesh,
     unless ``mesh`` is given) and ``tpu.precision`` (``'bf16'`` or
@@ -125,6 +127,12 @@ class Evaluator:
         if self.spatial_tiling not in ('on', 'off', 'auto'):
             raise ValueError('evaluation.spatial_tiling must be on, off or '
                              f'auto, not {self.spatial_tiling!r}')
+        self.tileable = getattr(model, 'tileable', True)
+        if not self.tileable and self.spatial_tiling == 'on':
+            raise ValueError(
+                "evaluation.spatial_tiling 'on': "
+                f'{type(model).__name__} cannot be run on tiles (its '
+                "attention is global); set it 'auto' or 'off'")
         self.tile_size = eval_cfg.get('tile_size', 'auto')
         self.tile_halo = int(eval_cfg.get('tile_halo', 128))
         self.device = resolve_device(device)
@@ -138,7 +146,8 @@ class Evaluator:
         if self.spatial_tiling == 'on':
             return True
         if self.spatial_tiling == 'auto':
-            return height * width >= 2048 * 1024 and self.mesh.data.size > 1
+            return (self.tileable and height * width >= 2048 * 1024
+                    and self.mesh.data.size > 1)
         return False
 
     def tiles(self, height: int, width: int) -> tuple[int, int]:

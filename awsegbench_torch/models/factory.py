@@ -1,13 +1,16 @@
 """Model factory (counterpart of ``awsegbench/models/factory.py``).
 
-``create_model`` builds 'segformer' | 'deeplabv3plus' | 'ensemble' from a
-plain dict (the model section of a config), initialises it from a seed and
-puts it on the device in eval mode (``TrainStep`` keeps its f32 parameters
-and switches it to train mode). The init is the port's own: He-normal
+``create_model`` builds 'segformer' | 'deeplabv3plus' | 'ensemble' |
+'mask2former' from a plain dict (the model section of a config),
+initialises it from a seed and puts it on the device in eval mode
+(``TrainStep`` keeps its f32 parameters and switches it to train mode).
+The init is the port's own: He-normal
 convs over their fan-in, truncated-normal 0.02 dense layers, zero
 biases, identity norms, except the last BN of each ResNet residual branch,
 whose scale starts at 0.25 (as the common zero-init of that scale, but
-leaving the branch in play). With identity BN statistics that keeps the
+leaving the branch in play), and Mask2Former's parts as
+``mask2former.init_parameters`` says (the deformable attention's offsets
+start at the published grid). With identity BN statistics that keeps the
 activations' scale through the 16 residual blocks and the logits O(10);
 the JAX package's fan-out init without it gives logits in the thousands,
 where an f32 comparison at an absolute tolerance means little. Weights
@@ -30,6 +33,7 @@ from ..utils.config import check_tpu_section
 from .deeplab import Bottleneck, DeepLabV3PlusModel
 from .ensemble import EnsembleModel
 from .heads import BatchNorm
+from .mask2former import Mask2FormerModel, init_parameters
 from .pretrained import apply_pretrained
 from .segformer import SegFormerModel, mit_variant_config, mit_variant_name
 
@@ -55,6 +59,7 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
         for mod in model.modules():
             if isinstance(mod, Bottleneck):
                 mod.BatchNorm_0.weight.fill_(0.25)
+        init_parameters(model, g)
     return model
 
 
@@ -101,6 +106,8 @@ def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
                                hidden_sizes, depths, remat=remat)
     elif kind == 'deeplabv3plus':
         model = DeepLabV3PlusModel(num_classes, include_depth)
+    elif kind == 'mask2former':
+        model = Mask2FormerModel(num_classes)
     elif kind == 'ensemble':
         model = EnsembleModel(
             num_classes, include_depth,

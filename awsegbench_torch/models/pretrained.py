@@ -205,6 +205,8 @@ def apply_pretrained(model: nn.Module, model_config: Mapping[str, Any],
         targets = [('segformer', 'MiTEncoder_0')]
     elif model_type == 'deeplabv3plus':
         targets = [('resnet', 'ResNetEncoder_0')]
+    elif model_type == 'mask2former':
+        targets = [('resnet', 'backbone')]
     else:                        # ensemble: under the members' module names
         targets = [('segformer', 'segformer.MiTEncoder_0'),
                    ('resnet', 'deeplabv3plus.ResNetEncoder_0')]

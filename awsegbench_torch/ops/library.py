@@ -1,9 +1,10 @@
 """The hand-written eval kernels as ``torch.library`` custom ops.
 
-``awseg::sr_attention`` (K1, ``csrc/sr_attention.cu``) and
-``awseg::seg_core`` (K2, ``csrc/seg_head.cu``) are graph nodes, so
-``torch.export`` records the op and not the Python dispatch around the
-kernel. Each op has a CPU kernel (the plain version), a CUDA kernel (the
+``awseg::sr_attention`` (K1, ``csrc/sr_attention.cu``),
+``awseg::seg_core`` (K2, ``csrc/seg_head.cu``) and
+``awseg::ms_deform_attn`` (K11, ``csrc/ms_deform_attn.cu``) are graph
+nodes, so ``torch.export`` records the op and not the Python dispatch
+around the kernel. Each op has a CPU kernel (the plain version), a CUDA kernel (the
 ctypes launch of the hand-written kernel, which counts the launch) and a
 fake implementation that computes the output's shape and dtype only, with
 no guard on the batch, so a symbolic batch survives the trace. No kernel is
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import attention, headkernels
+from . import attention, headkernels, ms_deform_attn as msda
 
 sr_attention = torch.library.custom_op(
     'awseg::sr_attention', attention.sr_attention_plain, mutates_args=(),
@@ -44,3 +45,16 @@ def _seg_core_fake(P, a1, c1, wp, bp, r):
     headkernels.check_shapes(P, wp, a1, c1, bp, r, 'seg_core')
     b, h, w, _, _ = P.shape
     return P.new_empty((b, h * r, w * r, wp.shape[1]))
+
+
+ms_deform_attn = torch.library.custom_op(
+    'awseg::ms_deform_attn', msda.ms_deform_attn_plain, mutates_args=(),
+    device_types='cpu')
+ms_deform_attn.register_kernel('cuda', msda._launch)
+
+
+@ms_deform_attn.register_fake
+def _ms_deform_attn_fake(value, shapes, loc, attn):
+    msda.check(value, shapes, loc, attn)
+    b, _, m, d = value.shape
+    return value.new_empty((b, loc.shape[1], m * d))

@@ -15,7 +15,12 @@ Phases, each printing one JSON line:
    mode and must match bit for bit, at the path's shape and at the ragged
    ``SPLAT_RAGGED`` cases, where K4 and K5 must match too; K1's bf16
    output must also lie within 2^-7·Σ p|v| of f32 math on its inputs),
-   plus K1 and K2 at a few ragged shapes off the path; median times of the
+   plus K1 and K2 at a few ragged shapes off the path, and K11 (the
+   multi-scale deformable sampling of Mask2Former's pixel decoder) in f32
+   and bf16 at ragged shapes and in bf16 at the Mask2Former sweep cell's
+   shape (1024×2048, batch 4: 43,008 queries, 8 heads of 32, 3 levels,
+   4 points; f32 to a few ulps, bf16 within one bf16 step, and faster
+   than its plain version); median times of the
    kernel, the plain version and, for attention,
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it). K1 and K6 also get the exponential floor
@@ -89,7 +94,18 @@ Phases, each printing one JSON line:
    Then card against CPU: an f32 sweep of 2 batches of 5 at 128×256 with
    the same draws, confusion matrices within 0.1% of each weather's
    pixels and mIoU, ECE and AUROC within 2e-3 of the CPU's.
-10. cli: the train CLI (``awsegbench_torch.cli.train.main``) in this
+10. mask2former: the same sweep on Mask2Former-R50 (``type:
+    mask2former``) as the benchmark's ``sweep-m2fr50-cityscapes`` cell
+    runs it, 1024×2048, batch 4, bf16, over 6 batches: counted from zero
+    (K11 exactly 6 launches a batch, one a pixel-decoder layer; K3 must
+    launch), the same count checks (no disagreement: the AUROC histogram
+    stays empty and the result has no AUROC), images/s, ms per batch,
+    peak memory and K11's device time in one batch. Then card against
+    CPU in f32 from the same weights: the forward at 128×256, batch 2
+    (semantic scores within 1e-4 relative L2, argmax 99.9% equal) and a
+    sweep of 2 batches of 2 with the same draws, held as the evaluator
+    phase holds the ensemble's.
+11. cli: the train CLI (``awsegbench_torch.cli.train.main``) in this
     process on ``configs/default.yaml`` with an empty data root (the
     synthetic 100 train and 20 val/test images), 512×1024, batch 8, one
     epoch, bf16: the default config's full-width ensemble with depth heads
@@ -107,7 +123,7 @@ Phases, each printing one JSON line:
     wall time and the sweep's images/s, and the loader alone (one epoch
     of the train split onto the card), beside the card's name and power
     limit.
-11. pretrained: synthetic state dicts (an HF MiT-B0 as ``.npz``, a
+12. pretrained: synthetic state dicts (an HF MiT-B0 as ``.npz``, a
     torchvision ResNet-50 as ``.pt``, the same MiT as a hand-written
     ``.safetensors``; He-scaled weights, running variances near 1) in a
     temporary ``$AWSEG_WEIGHTS_DIR``, grafted through the trainer's path
@@ -121,21 +137,21 @@ Phases, each printing one JSON line:
     and a truncated ``resnet50.npz`` must leave DeepLab at random init
     with a warning while MiT is grafted. Files' bytes, load + graft
     seconds, eval images/s.
-12. remat: ``TrainStep`` on the train path's configuration with remat off
+13. remat: ``TrainStep`` on the train path's configuration with remat off
     and then on, from the same weights: one step on the same batch and
     draws, counted (K1 8 launches with remat off, 16 with it on), its
     gradients held against each other at the train parity phase's
     tolerances and its updated parameters within 2·lr; then, per setting,
     5 timed steps (step ms, peak memory after
     ``reset_peak_memory_stats``) and one profiled step (device busy ms).
-13. weather_extras: on the card against the CPU, ``fog_density_map`` at
+14. weather_extras: on the card against the CPU, ``fog_density_map`` at
     1024×2048 (within 1e-5, the same synthetic depth), ``estimate_depth``
     (1e-5), a label map's ``resize_nearest`` (bit for bit), and
     ``WeatherAugmentationPipeline`` for each weather at 512×1024 and
     1024×2048, counted (K4 and K5 must launch), its output against the
     CPU's from the same draws (uint8 within 2 steps, 99.9% exact); max
     |Δ| and times.
-14. serving: ``awsegbench_torch.serving`` with the main path's model. A
+15. serving: ``awsegbench_torch.serving`` with the main path's model. A
     batch-polymorphic bf16 artifact at 512×1024 exported on the card
     (``torch.export``; K1 and K2 are the custom ops ``awseg::sr_attention``
     and ``awseg::seg_core``), saved and loaded back by
@@ -150,7 +166,7 @@ Phases, each printing one JSON line:
     (within 2e-3), and an f32 artifact exported on the CPU, moved to the
     card at load: counted (K1 8, K2 1, both ``simt_f32``) and equal to the
     card-exported one. Export and load seconds and artifact MB.
-15. parallel: the data mesh and spatial tiling. The main path's ensemble
+16. parallel: the data mesh and spatial tiling. The main path's ensemble
     at 1024×2048 in 512×1024 tiles with a 128-pixel halo against its
     monolithic forward (f32 within rtol 2e-4 and atol 2e-5, argmax
     equal; bf16 argmax against f32 no more than 0.1% below the
@@ -161,7 +177,7 @@ Phases, each printing one JSON line:
     global batch of 8 split 4 + 4 against one process (bf16, counted and
     timed, and f32; ``phase_parallel`` states the tolerances), and the
     tiled forward with its tiles split 2 + 2 against one rank's.
-16. tensor_parallel: the mesh's model axis (``parallel/tensor.py``) with
+17. tensor_parallel: the mesh's model axis (``parallel/tensor.py``) with
     gloo ranks sharing the card. On ``{data: 1, model: 2}`` the main
     path's ensemble at full width sharded at ``tp_min_features`` 64: the
     eval forward at 512×1024, batch 8, against one process (f32 within
@@ -177,11 +193,12 @@ Phases, each printing one JSON line:
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary of all eleven kernels (the ten TPU
-kernels' counterparts and the scatter; each kernel's ``launches`` from the
-path it serves: K1–K3 from the eval path, K6–K10 and the scatter from the
-train path, K4 and K5 from the single-image path, every path's counts
-(the evaluator's, the two CLIs', the pretrained eval's, the remat steps',
+``{"kernels": [...]}`` summary of all twelve kernels (the ten TPU
+kernels' counterparts, the scatter and K11; each kernel's ``launches``
+from the path it serves: K1–K3 from the eval path, K6–K10 and the scatter
+from the train path, K4 and K5 from the single-image path, K11 from the
+Mask2Former sweep, every path's counts (the evaluator's, the Mask2Former
+sweep's, the two CLIs', the pretrained eval's, the remat steps',
 the augmentation pipeline's, one serving request's, the parallel
 phase's tiled forward, tiled sweep and each rank's step, and the
 tensor_parallel phase's eval forward and train step on each rank too) under
@@ -210,6 +227,11 @@ EX2_RATE = 3.9e12
 MODEL_CFG = {'type': 'ensemble', 'num_classes': 19, 'include_depth': True,
              'head_mode': 'faithful'}
 TRAIN_CFG = MODEL_CFG             # bench.py:337's train configuration
+# Mask2Former-R50 as the sweep cell runs it: 1024×2048, batch 4; its
+# deformable attention's levels (res5, res4, res3: H, W pairs)
+M2F_CFG = {'type': 'mask2former', 'num_classes': 19}
+M2F_H, M2F_W, M2F_B = 1024, 2048, 4
+M2F_LEVELS = (32, 64, 64, 128, 128, 256)
 # Parameters that a train step leaves where they were, each with its reason.
 STILL_BY_CONSTRUCTION = {
     'segformer.SegmentationHead_0.Conv_0.bias':
@@ -480,7 +502,8 @@ def splat_ragged(dev, g) -> int:
 
 
 def phase_kernels(dev):
-    """K1–K3 against their plain versions; returns the kernels' records."""
+    """K1–K3 and K11 against their plain versions; returns the kernels'
+    records."""
     import torch
     import torch.nn.functional as F
     from awsegbench_torch.ops import attention, splat
@@ -582,6 +605,8 @@ def phase_kernels(dev):
                          reps=3, warmup=1),
         **splat_bound(params, H, W), library_ms=None,
         covered=float(got.mean()), ragged_cases=splat_ragged(dev, g))
+
+    recs['ms_deform_attn'] = deform_kernel(dev, g)
     return recs
 
 
@@ -625,6 +650,95 @@ def seg_head_kernel(dev, g):
                             ('seg_head_mma',)),
         kron_bound_ms=kron_ms)
     del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+# K11's tolerances, as its card test holds it
+# (tests/test_torch_ms_deform_attn_card.py): f32 to a few ulps of the plain
+# version (the two sum 4·L·P products in other orders), bf16 within one
+# bf16 step (each side rounds its f32 sum once). Off the cell's shape: odd
+# maps, 1 to 4 levels, 2 to 8 heads of 8 to 32 channels, 2 to 4 points.
+K11_TOLS = {'float32': (1e-5, 2e-5), 'bfloat16': (2 ** -7, 2e-5)}
+K11_RAGGED = (((3, 5, 7, 2), 2, 8, 3), ((1, 1, 4, 6, 2, 9), 8, 32, 4),
+              ((5, 3, 8, 8, 2, 2, 1, 1), 4, 16, 2))
+
+
+def deform_operands(g, b, shapes, m, d, points, dtype):
+    """K11's operands over every level's pixels as queries: values, f32
+    locations (a query's reference point plus offsets of up to 5 pixels of
+    each level, about 1 in 8 of them past the map's edge, some exactly on
+    an edge) and f32 weights softmaxed over the levels and points."""
+    import torch
+    from awsegbench_torch.ops import ms_deform_attn as msda
+    dev = g.device
+    sizes = msda.level_sizes(shapes)
+    lq = s = sum(h * w for h, w in sizes)
+    value = torch.randn(b, s, m, d, generator=g, device=dev).to(dtype)
+    ref = torch.rand(b, lq, 1, 1, 1, 2, generator=g, device=dev)
+    wh = torch.tensor([[w, h] for h, w in sizes], dtype=torch.float32,
+                      device=dev).view(1, 1, 1, len(sizes), 1, 2)
+    off = (torch.rand(b, lq, m, len(sizes), points, 2, generator=g,
+                      device=dev) - 0.5) * 10.0
+    loc = ref + off / wh
+    loc[:, ::7, :, :, 0, 0] = 0.0                  # on the left edge
+    loc[:, ::11, :, :, -1, 1] = 1.0                # on the bottom edge
+    attn = torch.softmax(torch.randn(b, lq, m, len(sizes) * points,
+                                     generator=g, device=dev), -1)
+    return value, loc, attn.view(b, lq, m, len(sizes), points)
+
+
+def deform_kernel(dev, g):
+    """K11 against its plain version (``ms_deform_attn_plain``, F.grid_sample
+    per level) in f32 and bf16 at ``K11_RAGGED`` and, in bf16, at the
+    Mask2Former cell's shape (``M2F_LEVELS``, batch ``M2F_B``, 8 heads of
+    32, 4 points), where it is timed beside the plain version and its
+    bound (``portbench/counts/mask2former.py``); returns its record."""
+    import torch
+    from awsegbench_torch.ops import ms_deform_attn as msda
+    from portbench.counts.mask2former import k11_counts
+
+    errs = dict.fromkeys(K11_TOLS, 0.0)
+    for name, (rtol, atol) in K11_TOLS.items():
+        dt = getattr(torch, name)
+        for shapes, m, d, points in K11_RAGGED:
+            args = deform_operands(g, 2, shapes, m, d, points, dt)
+            got = msda.ms_deform_attn(args[0], shapes, *args[1:])
+            want = msda.ms_deform_attn_plain(args[0], shapes, *args[1:])
+            check_close(f'ms_deform_attn {name} {shapes} m{m} d{d} '
+                        f'p{points}', got, want, rtol, atol)
+            errs[name] = max(errs[name], max_err(got, want))
+    m, d, points = 8, 32, 4
+    value, loc, attn = deform_operands(g, M2F_B, M2F_LEVELS, m, d, points,
+                                       torch.bfloat16)
+    lq = value.shape[1]
+
+    def k11():
+        return msda.ms_deform_attn(value, M2F_LEVELS, loc, attn)
+
+    def plain():
+        return msda.ms_deform_attn_plain(value, M2F_LEVELS, loc, attn)
+
+    got, want = k11(), plain()
+    check_close('ms_deform_attn bfloat16 at the cell', got, want,
+                *K11_TOLS['bfloat16'])
+    cell_err = max_err(got, want)
+    del got, want
+    flops, nbytes = k11_counts(M2F_B, lq, lq, m, d, len(M2F_LEVELS) // 2,
+                               points)
+    bms, by = bound(flops, nbytes, F32_PEAK)
+    rec = dict(
+        name='ms_deform_attn', route='cuda',
+        source='awsegbench_torch/csrc/ms_deform_attn.cu', replaces=None,
+        max_abs_err=max(errs['bfloat16'], cell_err), ms=time_ms(k11),
+        plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=bms, bound_by=by,
+        library_ms=None, max_abs_err_f32=errs['float32'],
+        device_ms=device_ms(k11, ('ms_deform_attn',)),
+        ragged_cases=len(K11_RAGGED))
+    if not rec['ms'] < rec['plain_ms']:
+        raise AssertionError(f'ms_deform_attn: {rec["ms"]} ms, not below '
+                             f'the plain version\'s {rec["plain_ms"]} ms')
+    del value, loc, attn
     torch.cuda.empty_cache()
     return rec
 
@@ -1275,12 +1389,14 @@ def counters():
     from awsegbench_torch.ops import attention, headkernels, splat
     from awsegbench_torch.ops import depthkernels_train as dk
     from awsegbench_torch.ops import headkernels_train as ht
+    from awsegbench_torch.ops import ms_deform_attn as msda
     return {fn.__name__: fn for fn in (
         attention.sr_attention, headkernels.seg_core,
         splat.splat_coverage_batched, splat.splat_coverage_windowed,
         splat.splat_coverage_tiled, attention.sr_attention_backward,
         ht.seg_core_train, ht.seg_core_train_backward, dk.d1_core_train,
-        dk.d1_core_train_backward, ht.neighbor_pp_adjoint)}
+        dk.d1_core_train_backward, ht.neighbor_pp_adjoint,
+        msda.ms_deform_attn)}
 
 
 def count_launches(run):
@@ -1623,13 +1739,16 @@ def schema_keys(exact: bool) -> set:
             | ({'_auroc_histogram_estimate'} if exact else set()))
 
 
-def check_sweep(what, ev, res, loader, exact):
-    """Every schema key present and finite; each weather's confusion
-    matrix holds that weather's non-ignored pixels; the ECE bins and the
-    AUROC histogram hold every non-ignored pixel."""
+def check_sweep(what, ev, res, loader, exact, members=True):
+    """Every schema key present and finite (a model without members has
+    no disagreement AUROC); each weather's confusion matrix holds that
+    weather's non-ignored pixels; the ECE bins hold every non-ignored
+    pixel, and the AUROC histogram every one of them (none without
+    members)."""
     import torch
-    if set(res) != schema_keys(exact) or not all(
-            math.isfinite(v) for v in res.values()):
+    keys = schema_keys(exact) - (set() if members
+                                 else {'ensemble_disagreement_auroc'})
+    if set(res) != keys or not all(math.isfinite(v) for v in res.values()):
         raise AssertionError(f'{what}: result keys or values: {res}')
     n_valid = torch.zeros(5, dtype=torch.int64)
     for b in loader:
@@ -1638,7 +1757,8 @@ def check_sweep(what, ev, res, loader, exact):
     acc = ev.last_acc
     if not (torch.equal(acc['cm'].sum(dim=(1, 2)), n_valid)
             and int(acc['ece'][..., 0].sum()) == int(n_valid.sum())
-            and int(acc['auroc_hist'].sum()) == int(n_valid.sum())):
+            and int(acc['auroc_hist'].sum()) == (int(n_valid.sum())
+                                                 if members else 0)):
         raise AssertionError(f'{what}: counts {acc["cm"].sum(dim=(1, 2))}, '
                              f'ECE {acc["ece"][..., 0].sum()}, histogram '
                              f'{acc["auroc_hist"].sum()} for {n_valid}')
@@ -1754,6 +1874,91 @@ def phase_evaluator(dev):
           'card_vs_cpu': {'cm_moved': moved, 'cm_pixels': per_weather,
                           'max_gap': max(gaps.values()),
                           'cpu_results': rc}})
+    return launches
+
+
+M2F_SWEEP_BATCHES = 6
+M2F_LAYERS = 6                    # pixel-decoder layers: one K11 launch each
+
+
+def phase_mask2former(dev):
+    """The robustness sweep (``Evaluator``) on Mask2Former-R50 as the
+    ``sweep-m2fr50-cityscapes`` cell runs it: 1024×2048, batch 4, bf16,
+    over ``M2F_SWEEP_BATCHES`` synthetic batches, counted from zero (K11
+    exactly ``M2F_LAYERS`` launches a batch, K3 at least one), then timed
+    in a second sweep with its peak memory; K11's device time in one
+    batch's forward. Then card against CPU in f32 from the same weights:
+    the forward at 128×256, batch 2 (semantic scores within 1e-4 relative
+    L2 error: the two sides sum in other orders, a few ulps a product;
+    argmax at least 99.9% equal), and a sweep of 2 batches of 2 with the
+    same draws (confusion matrices within 0.1% of each weather's pixels,
+    mIoU and ECE within 2e-3, as the evaluator phase holds the ensemble).
+    Returns the counted sweep's launches."""
+    import torch
+    from awsegbench_torch.eval.evaluator import Evaluator
+    from awsegbench_torch.models import create_model
+    from awsegbench_torch.weather.corruption import draw_corruption
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    loader = sweep_loader(dev, g, M2F_SWEEP_BATCHES, M2F_B, M2F_H, M2F_W)
+    config = {'model': M2F_CFG, 'tpu': {'precision': 'bf16'}}
+    ev = Evaluator(create_model(M2F_CFG, device=dev, seed=0), config,
+                   auroc_mode='histogram', device=dev)
+    res, launches = run_counted(lambda: ev.run(loader, seed=1),
+                                ('ms_deform_attn', 'splat_coverage_batched'),
+                                'mask2former sweep')
+    if launches['ms_deform_attn'] != M2F_LAYERS * M2F_SWEEP_BATCHES:
+        raise AssertionError(f'mask2former sweep: {launches["ms_deform_attn"]}'
+                             f' K11 launches, not {M2F_LAYERS} a batch')
+    n_valid = check_sweep('mask2former sweep', ev, res, loader, False,
+                          members=False)
+    torch.cuda.reset_peak_memory_stats()
+    res = ev.run(loader, seed=1)                      # warm: timed
+    peak = torch.cuda.max_memory_allocated()
+    check_sweep('mask2former sweep', ev, res, loader, False, members=False)
+    b0 = loader[0]
+    k11_ms = device_ms(lambda: ev.forward(b0['image'], b0['label'],
+                                          b0['weather_id'], g),
+                       ('ms_deform_attn',), reps=2)
+    del ev, loader
+    torch.cuda.empty_cache()
+
+    # card against CPU: f32, the same weights and draws
+    cg = torch.Generator().manual_seed(12)
+    x = torch.randn(2, 128, 256, 3, generator=cg)
+    small = sweep_loader('cpu', cg, 2, 2, 128, 256)
+    draws = [draw_corruption(b['weather_id'], 128, 256, cg) for b in small]
+    f32 = {'model': M2F_CFG, 'tpu': {'precision': 'fp32'}}
+    both = {}
+    for where in (dev, 'cpu'):
+        model = create_model(M2F_CFG, device=where, seed=0)
+        with torch.inference_mode():
+            scores = model(x.to(where))['segmentation'].cpu()
+        e = Evaluator(model, f32, device=where)
+        both[str(where)] = (scores, e.run(small, seed=0, draws=draws),
+                            e.last_acc)
+    (sg, rg, ag), (sc, rc, ac) = both[str(dev)], both['cpu']
+    rel = float((sg - sc).norm() / sc.norm())
+    same = float((sg.argmax(-1) == sc.argmax(-1)).float().mean())
+    moved = ((ag['cm'] - ac['cm']).abs().sum(dim=(1, 2)) / 2).tolist()
+    per_weather = ac['cm'].sum(dim=(1, 2)).tolist()
+    gaps = {k: abs(rg[k] - rc[k]) for k in rc if not k.startswith('_')}
+    if not (rel <= 1e-4 and same >= 0.999 and rg.keys() == rc.keys()
+            and max(gaps.values()) <= 2e-3
+            and all(m <= 1e-3 * n for m, n in zip(moved, per_weather))):
+        raise AssertionError(f'mask2former card vs CPU: scores rel {rel}, '
+                             f'argmax equal {same}, moved {moved} of '
+                             f'{per_weather}, gaps {gaps}')
+    emit({'phase': 'mask2former', 'batch': M2F_B, 'hw': [M2F_H, M2F_W],
+          'dtype': 'bfloat16', 'batches': M2F_SWEEP_BATCHES,
+          'valid_pixels': n_valid,
+          'images_per_s': res['_throughput_images_per_sec'],
+          'batch_ms': 1e3 * M2F_B / res['_throughput_images_per_sec'],
+          'peak_memory_bytes': peak, 'k11_device_ms_per_batch': k11_ms,
+          'results': res, 'launches': launches,
+          'card_vs_cpu': {'scores_rel': rel, 'argmax_equal': same,
+                          'cm_moved': moved, 'cm_pixels': per_weather,
+                          'max_gap': max(gaps.values())}})
     return launches
 
 
@@ -3560,6 +3765,7 @@ def main() -> int:
     phase_train_parity(dev)
     single_recs, single_launches = phase_single_image(dev)
     evaluator_launches = phase_evaluator(dev)
+    m2f_launches = phase_mask2former(dev)
     cli_train_launches, cli_evaluate_launches = phase_cli(dev)
     pretrained_launches = phase_pretrained(dev)
     remat_off_launches, remat_on_launches = phase_remat(dev)
@@ -3580,6 +3786,7 @@ def main() -> int:
     paths = {'eval': eval_launches, 'train': train_launches,
              'single_image': single_launches,
              'evaluator': evaluator_launches,
+             'mask2former': m2f_launches,
              'cli_train': cli_train_launches,
              'cli_evaluate': cli_evaluate_launches,
              'pretrained': pretrained_launches,
@@ -3594,11 +3801,14 @@ def main() -> int:
              'tp_eval_rank1': tp_eval_launches[1],
              'tp_train_rank0': tp_train_launches[0],
              'tp_train_rank1': tp_train_launches[1]}
+    # the path whose launches a kernel's record gives, where it is not
+    # that of its phase: K11 serves Mask2Former's sweep alone
+    served_by = {'ms_deform_attn': 'mask2former'}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):
         for name, rec in path_recs.items():
-            rec = dict(rec, launches=paths[path][name])
+            rec = dict(rec, launches=paths[served_by.get(name, path)][name])
             line = dict({k: rec.get(k) for k in keys},
                         launches_by_path={p: c[name]
                                           for p, c in paths.items()})
@@ -3607,8 +3817,8 @@ def main() -> int:
                 line['launches_by_design_by_path'] = {
                     p: c[f'{name}.by_design'] for p, c in paths.items()}
             summary.append(line)
-    if len(summary) != 11:
-        raise AssertionError(f'{len(summary)} kernels in the summary, not 11')
+    if len(summary) != 12:
+        raise AssertionError(f'{len(summary)} kernels in the summary, not 12')
     emit({'kernels': summary})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
