@@ -32,7 +32,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 # for bit, so no multiply-add contraction may move a ``d2 <= r*r`` decision.
 EXTRA_FLAGS = {'splat': ['-fmad=false']}
 KERNELS = ('sr_attention', 'sr_attention_bwd', 'seg_head', 'seg_head_train',
-           'depth_stage1_train', 'pp_adjoint', 'splat', 'ms_deform_attn')
+           'depth_stage1_train', 'pp_adjoint', 'splat', 'ms_deform_attn',
+           'bn_act')
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

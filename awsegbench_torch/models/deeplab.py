@@ -46,10 +46,9 @@ class Bottleneck(nn.Module):
             self.BatchNorm_1 = BatchNorm(features * 4)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:    # NCHW
-        y = self.BatchNorm_0(self.Conv_0(self.ConvBNReLU_1(
-            self.ConvBNReLU_0(x))))
         residual = self.BatchNorm_1(self.Conv_1(x)) if self.downsample else x
-        return F.relu(y + residual)
+        return self.BatchNorm_0(self.Conv_0(self.ConvBNReLU_1(
+            self.ConvBNReLU_0(x))), residual, relu=True)
 
 
 _STRIDES = {16: ((1, 2, 2, 1), (1, 1, 1, 2)),
@@ -84,7 +83,7 @@ class ResNetEncoder(nn.Module):
         stage (layer3, layer4: about 96 input pixels) stays inside a
         128-pixel halo."""
         feats = [x]
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_0(self.Conv_0(x), relu=True)
         feats.append(y)
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         blk = 0
@@ -109,7 +108,7 @@ class SeparableConvBNReLU(nn.Module):
         self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.BatchNorm_0(self.Conv_1(self.Conv_0(x))))
+        return self.BatchNorm_0(self.Conv_1(self.Conv_0(x)), relu=True)
 
 
 class ASPP(nn.Module):

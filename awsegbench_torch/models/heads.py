@@ -10,8 +10,11 @@ Parity notes:
 
 * BN eval mode uses the running statistics with eps 1e-5, computed as Flax
   does: ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in the promoted
-  dtype of x and the parameters. Its buffers are ``running_mean`` and
-  ``running_var``; there is no ``num_batches_tracked``.
+  dtype of x and the parameters. With the residual add and the ReLU that
+  follow it, it is one ``ops.bn_act`` call: K12 on the card (f32
+  arithmetic, rounded once), the composition op for op on the CPU. Its
+  buffers are ``running_mean`` and ``running_var``; there is no
+  ``num_batches_tracked``.
 * BN train mode is Flax ``nn.BatchNorm``'s: f32 batch statistics by the
   fast variance ``E[x²] − E[x]²`` (clipped at 0), the normalisation in f32
   and the result in the promoted dtype, and the running statistics
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import const
+from ..ops.bn_act import bn_act
 from ..ops.depthkernels_train import depth_stage1_fused_train
 from ..ops.headkernels import seg_head_fused
 from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
@@ -81,7 +85,12 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(c))
         self.register_buffer('running_var', torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                residual: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        """BN of x, then ``+ residual`` where given, then the ReLU where
+        ``relu`` is set. In eval mode all of it is one ``bn_act`` (K12 on
+        the card)."""
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             dims = (0,) + tuple(range(2, x.ndim))
@@ -98,10 +107,12 @@ class BatchNorm(nn.Module):
             self.set_stats(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-            return y.to(torch.result_type(x, self.weight))
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+            y = y.to(torch.result_type(x, self.weight))
+            if residual is not None:
+                y = y + residual
+            return F.relu(y) if relu else y
+        return bn_act(x, self.running_mean, self.running_var, self.weight,
+                      self.bias, self.eps, residual, relu)
 
     @torch.no_grad()
     def set_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -156,8 +167,7 @@ class ConvBNReLU(nn.Module):
         self.use_relu = use_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # NCHW
-        x = self.BatchNorm_0(self.Conv_0(x))
-        return F.relu(x) if self.use_relu else x
+        return self.BatchNorm_0(self.Conv_0(x), relu=self.use_relu)
 
 
 class DepthEstimationHead(nn.Module):
@@ -208,11 +218,11 @@ class DepthEstimationHead(nn.Module):
                                                   scale=upsample_scale))
             else:
                 x = self.Conv_0(nhwc_to_nchw(features))
-            x = F.relu(bn0(x))
+            x = bn0(x, relu=True)
             if self.training:
                 x = hash_dropout(x, seed, self.dropout)
             x = self.Conv_1(x)
-        x = F.relu(self.BatchNorm_1(x))
+        x = self.BatchNorm_1(x, relu=True)
         return nchw_to_nhwc(torch.sigmoid(self.Conv_2(x)))
 
 
@@ -244,7 +254,7 @@ class SegmentationHead(nn.Module):
                                       bn.running_mean, bn.running_var, bn.eps,
                                       hwio(self.Conv_1), self.Conv_1.bias,
                                       scale=upsample_scale)
-            x = F.relu(bn(self.Conv_0(nhwc_to_nchw(features))))
+            x = bn(self.Conv_0(nhwc_to_nchw(features)), relu=True)
             return nchw_to_nhwc(self.Conv_1(x))
         if seed is None:
             raise ValueError('SegmentationHead: train mode needs the dropout '

@@ -20,10 +20,16 @@ Phases, each printing one JSON line:
    and bf16 at ragged shapes and in bf16 at the Mask2Former sweep cell's
    shape (1024×2048, batch 4: 43,008 queries, 8 heads of 32, 3 levels,
    4 points; f32 to a few ulps, bf16 within one bf16 step, and faster
-   than its plain version); median times of the
+   than its plain version), and K12 (eval BN with its residual add and
+   ReLU in one pass) in f32 and bf16 at ragged shapes in both layouts and
+   in bf16 at Mask2Former-R50's stem (channels-last [4, 64, 512, 1024])
+   and at a layer-1 block's last BN with its residual ([4, 256, 256,
+   512]), where it must beat its plain version, the old composition;
+   median times of the
    kernel, the plain version and, for attention,
-   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it). K1 and K6 also get the exponential floor
+   ``F.scaled_dot_product_attention``, for K12 the library's eval
+   ``F.batch_norm`` with an in-place add and ReLU (yardsticks only; the
+   port calls neither). K1 and K6 also get the exponential floor
    (``exp_bound_ms``: one ex2 per score on the special-function unit) and
    device times by the profiler, theirs and SDPA's (``device_ms``,
    ``library_device_ms``: ``ms`` less the host's time to launch them);
@@ -31,8 +37,8 @@ Phases, each printing one JSON line:
 3. main path: the faithful SegFormer-B0 + DeepLabV3+ (ResNet-50) ensemble
    eval step at 512×1024, bf16, batch 8, mixed weather 0–4: 2 warm-up and
    5 timed batches; images/s, and each kernel's launch count in that run
-   (every count must be > 0, and K1's bf16 calls must have gone through
-   its tensor-core design); the confusion-matrix total must equal the
+   (every count must be > 0, K12 exactly 66 a step, and K1's bf16 calls
+   must have gone through its tensor-core design); the confusion-matrix total must equal the
    count of non-ignored pixels and the depth sum must be finite. The
    host cost of the custom ops (``ops/library.py``) the step calls K1 and
    K2 through: one step's nine calls through the ops against the bare
@@ -97,8 +103,8 @@ Phases, each printing one JSON line:
 10. mask2former: the same sweep on Mask2Former-R50 (``type:
     mask2former``) as the benchmark's ``sweep-m2fr50-cityscapes`` cell
     runs it, 1024×2048, batch 4, bf16, over 6 batches: counted from zero
-    (K11 exactly 6 launches a batch, one a pixel-decoder layer; K3 must
-    launch), the same count checks (no disagreement: the AUROC histogram
+    (K11 exactly 6 launches a batch, one a pixel-decoder layer; K12
+    exactly 53, one a BN of the ResNet-50; K3 must launch), the same count checks (no disagreement: the AUROC histogram
     stays empty and the result has no AUROC), images/s, ms per batch,
     peak memory and K11's device time in one batch. Then card against
     CPU in f32 from the same weights: the forward at 128×256, batch 2
@@ -156,7 +162,7 @@ Phases, each printing one JSON line:
     (``torch.export``; K1 and K2 are the custom ops ``awseg::sr_attention``
     and ``awseg::seg_core``), saved and loaded back by
     ``ServingModel.load``: one batch-1 request counted (K1 8 launches, K2
-    1, K3 none), its batch-8 outputs against the in-process
+    1, K3 none, K12 66), its batch-8 outputs against the in-process
     ``build_serving_fn`` forward (within one bf16 step of the logits'
     scale; 0 expected), a wrong shape and a wrong dtype refused; images/s
     at batch 8 and p50/p90 latency at batch 1 (host clock, synchronised),
@@ -170,8 +176,8 @@ Phases, each printing one JSON line:
     at 1024×2048 in 512×1024 tiles with a 128-pixel halo against its
     monolithic forward (f32 within rtol 2e-4 and atol 2e-5, argmax
     equal; bf16 argmax against f32 no more than 0.1% below the
-    monolithic bf16's; a tiled forward counted: K1 8, K2 1; ms and peak
-    memory of both), the ``Evaluator`` with ``spatial_tiling='on'``
+    monolithic bf16's; a tiled forward counted: K1 8, K2 1, K12 66; ms
+    and peak memory of both), the ``Evaluator`` with ``spatial_tiling='on'``
     against the monolithic sweep (mIoU and ECE within 1e-4, counted), and
     two ranks on the one card over gloo: ``TrainStep`` at 512×1024 with a
     global batch of 8 split 4 + 4 against one process (bf16, counted and
@@ -182,7 +188,7 @@ Phases, each printing one JSON line:
     path's ensemble at full width sharded at ``tp_min_features`` 64: the
     eval forward at 512×1024, batch 8, against one process (f32 within
     rtol 2e-4 and atol 2e-5, argmax equal; bf16 against bf16's own error;
-    counted: K1 8, K2 1 a rank); ``TrainStep`` on the train cell in bf16
+    counted: K1 8, K2 1, K12 66 a rank); ``TrainStep`` on the train cell in bf16
     (batch 8, counted: K1 8, K3 1, K6 8, K7–K10 1 each, the scatter 2 a
     rank) and f32 (batch 4) against one process (``phase_tensor_parallel``
     states the tolerances); each rank's bytes of parameters, gradients
@@ -193,11 +199,11 @@ Phases, each printing one JSON line:
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary of all twelve kernels (the ten TPU
-kernels' counterparts, the scatter and K11; each kernel's ``launches``
-from the path it serves: K1–K3 from the eval path, K6–K10 and the scatter
-from the train path, K4 and K5 from the single-image path, K11 from the
-Mask2Former sweep, every path's counts (the evaluator's, the Mask2Former
+``{"kernels": [...]}`` summary of all thirteen kernels (the ten TPU
+kernels' counterparts, the scatter, K11 and K12; each kernel's
+``launches`` from the path it serves: K1–K3 and K12 from the eval path,
+K6–K10 and the scatter from the train path, K4 and K5 from the
+single-image path, K11 from the Mask2Former sweep, every path's counts (the evaluator's, the Mask2Former
 sweep's, the two CLIs', the pretrained eval's, the remat steps',
 the augmentation pipeline's, one serving request's, the parallel
 phase's tiled forward, tiled sweep and each rank's step, and the
@@ -502,8 +508,8 @@ def splat_ragged(dev, g) -> int:
 
 
 def phase_kernels(dev):
-    """K1–K3 and K11 against their plain versions; returns the kernels'
-    records."""
+    """K1–K3, K11 and K12 against their plain versions; returns the
+    kernels' records."""
     import torch
     import torch.nn.functional as F
     from awsegbench_torch.ops import attention, splat
@@ -607,6 +613,7 @@ def phase_kernels(dev):
         covered=float(got.mean()), ragged_cases=splat_ragged(dev, g))
 
     recs['ms_deform_attn'] = deform_kernel(dev, g)
+    recs['bn_act'] = bn_act_kernel(dev, g)
     return recs
 
 
@@ -743,6 +750,134 @@ def deform_kernel(dev, g):
     return rec
 
 
+# K12's cases off the cells' shapes (shape, residual, ReLU), each in both
+# layouts (channel-major takes the scalar kernel): a ragged C (the scalar
+# kernel), 8 and 6 channel groups, 256 groups, a C above the vector path's,
+# 1×1 maps.
+K12_RAGGED = (((2, 20, 7, 9), True, True), ((2, 64, 5, 8), False, True),
+              ((3, 48, 4, 4), True, False), ((1, 2048, 3, 5), True, True),
+              ((2, 4096, 2, 2), False, False), ((2, 16, 1, 1), True, True))
+K12_STEM = (M2F_B, 64, M2F_H // 2, M2F_W // 2)
+# a layer-1 block's last BN, with its residual, at Mask2Former-R50's shape
+K12_BLOCK = (M2F_B, 256, M2F_H // 4, M2F_W // 4)
+
+
+def bn_act_operands(g, shape, dtype, lay, residual):
+    """K12's operands: x (and the residual) in layout ``lay``; mean, var
+    (positive), weight, bias."""
+    import torch
+    dev, c = g.device, shape[1]
+    fmt = (torch.channels_last if lay == 'nhwc'
+           else torch.contiguous_format)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    x = randn(*shape).to(dtype).contiguous(memory_format=fmt)
+    res = (randn(*shape).to(dtype).contiguous(memory_format=fmt)
+           if residual else None)
+    var = torch.rand(c, generator=g, device=dev) + 0.1
+    return (x, (randn(c) * 0.5).to(dtype), var.to(dtype), randn(c).to(dtype),
+            (randn(c) * 0.5).to(dtype), res)
+
+
+def bn_act_held(ops, relu) -> float:
+    """K12 on ``ops`` against its plain version as its card test holds it
+    (``tests/test_torch_bn_act_card.py``): f32 within 1e-6 of the terms'
+    size |x − mean|·|mul| + |bias| + |residual|; bf16 equal to the plain
+    version's function in f32 rounded once, or one bf16 step beside it.
+    Returns the max abs difference from the plain version."""
+    import torch
+    from awsegbench_torch.ops import bn_act as bna
+    x, mean, var, weight, bias, res = ops
+    got = bna.bn_act(x, mean, var, weight, bias, 1e-5, res, relu)
+    f = [None if t is None else t.float() for t in ops]
+    want = bna.bn_act_plain(*f[:5], 1e-5, f[5], relu)
+    shape = (1, -1, 1, 1)
+    size = ((f[0] - f[1].view(shape)).abs()
+            * (torch.rsqrt(f[2] + 1e-5) * f[3]).abs().view(shape)
+            + f[4].abs().view(shape) + (0.0 if res is None else f[5].abs()))
+    if x.dtype == torch.float32:
+        room = 1e-6 * size
+    else:
+        room = bf16_step(want.bfloat16()) + 1e-6 * size
+        want = want.bfloat16()
+    err = (got.float() - want.float()).abs()
+    if got.stride() != x.stride() or not bool((err <= room).all()):
+        raise AssertionError(f'bn_act {x.dtype} {tuple(x.shape)} '
+                             f'strides {x.stride()}: off by '
+                             f'{float((err - room).max())} beyond its room')
+    return max_err(got, bna.bn_act_plain(*ops[:5], 1e-5, res, relu))
+
+
+def bn_act_kernel(dev, g):
+    """K12 against its plain version (``bn_act_plain``, the composition the
+    models ran before it) in f32 and bf16 at ``K12_RAGGED`` in both
+    layouts and, in bf16 with the ReLU, at Mask2Former-R50's stem
+    (``K12_STEM``, channels-last), where it is timed beside the plain
+    version, its bound (x read once, y written once) and the library's
+    eval BN (``F.batch_norm`` with f32 statistics, then an in-place ReLU);
+    the same three again at a layer-1 block's last BN with its residual
+    (``K12_BLOCK``; the library adds it in place before the ReLU). Returns
+    its record."""
+    import torch
+    import torch.nn.functional as F
+    from awsegbench_torch.ops import bn_act as bna
+
+    errs = {'float32': 0.0, 'bfloat16': 0.0}
+    for name in errs:
+        for shape, residual, relu in K12_RAGGED:
+            for lay in ('nhwc', 'nchw'):
+                ops = bn_act_operands(g, shape, getattr(torch, name), lay,
+                                      residual)
+                errs[name] = max(errs[name], bn_act_held(ops, relu))
+
+    def timed(shape, residual):
+        ops = bn_act_operands(g, shape, torch.bfloat16, 'nhwc', residual)
+        x, mean, var, weight, bias, res = ops
+        err = bn_act_held(ops, True)
+        stats = [t.float() for t in (mean, var, weight, bias)]
+
+        def k12():
+            return bna.bn_act(x, mean, var, weight, bias, 1e-5, res, True)
+
+        def plain():
+            return bna.bn_act_plain(x, mean, var, weight, bias, 1e-5, res,
+                                    True)
+
+        def library():
+            y = F.batch_norm(x, stats[0], stats[1], stats[2], stats[3],
+                             training=False, eps=1e-5)
+            return (y if res is None else y.add_(res)).relu_()
+
+        nbytes = (3.0 if residual else 2.0) * x.numel() * x.element_size()
+        bms, by = bound(0.0, nbytes, BF16_PEAK)
+        out = dict(shape=list(shape), residual=residual, max_abs_err=err,
+                   ms=time_ms(k12), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), bound_ms=bms, bound_by=by,
+                   device_ms=device_ms(k12, ('bn_act',)),
+                   library_max_abs_err=max_err(library(), plain()))
+        del x, mean, var, weight, bias, res, ops
+        torch.cuda.empty_cache()
+        return out
+
+    stem, block = timed(K12_STEM, False), timed(K12_BLOCK, True)
+    rec = dict(
+        name='bn_act', route='cuda', source='awsegbench_torch/csrc/bn_act.cu',
+        replaces=None, max_abs_err=max(errs['bfloat16'], stem['max_abs_err'],
+                                       block['max_abs_err']),
+        ms=stem['ms'], plain_ms=stem['plain_ms'], bound_ms=stem['bound_ms'],
+        bound_by=stem['bound_by'], library_ms=stem['library_ms'],
+        max_abs_err_f32=errs['float32'], device_ms=stem['device_ms'],
+        ragged_cases=2 * len(K12_RAGGED), stem=stem, block=block)
+    for case in (stem, block):
+        if not case['ms'] < case['plain_ms']:
+            raise AssertionError(f'bn_act {case["shape"]}: {case["ms"]} ms, '
+                                 f'not below the plain version\'s '
+                                 f'{case["plain_ms"]} ms')
+    return rec
+
+
 def phase_main_path(dev):
     import torch
     from awsegbench_torch.eval.step import EvalStep
@@ -772,6 +907,9 @@ def phase_main_path(dev):
         return time.perf_counter() - t0
 
     dt, launches = run_counted(run, EVAL_COUNTERS, 'eval')
+    if launches['bn_act'] != ENSEMBLE_BNS * len(batches):
+        raise AssertionError(f'eval: {launches["bn_act"]} K12 launches, not '
+                             f'{ENSEMBLE_BNS} a step')
     n_valid = sum(int((lab != 255).sum()) for _, lab, _ in batches)
     cm_total = int(step.cm.sum())
     if cm_total != n_valid:
@@ -1370,7 +1508,19 @@ def pp_adjoint_kernel(dev, g):
         per='train step: the seg head\'s and the depth head\'s scatter')
 
 
-EVAL_COUNTERS = ('sr_attention', 'seg_core', 'splat_coverage_batched')
+EVAL_COUNTERS = ('sr_attention', 'seg_core', 'splat_coverage_batched',
+                 'bn_act')
+# K12 launches of one eval forward: every BN of the ensemble (64 in
+# DeepLabV3+, 2 in the SegFormer depth head) and of Mask2Former-R50's
+# ResNet-50
+ENSEMBLE_BNS, M2F_BNS = 66, 53
+# The paths that run a model in eval mode (the train CLI validates too),
+# where K12 launches, and those that only train, where it never does
+EVAL_PATHS = ('eval', 'evaluator', 'mask2former', 'cli_train',
+              'cli_evaluate', 'pretrained', 'serving', 'parallel_tiled_eval',
+              'parallel_tiled_sweep', 'tp_eval_rank0', 'tp_eval_rank1')
+TRAIN_PATHS = ('train', 'remat_off', 'remat_on', 'parallel_train_rank0',
+               'parallel_train_rank1', 'tp_train_rank0', 'tp_train_rank1')
 # The attention wrappers' designs, by the dtype they take (ops/attention.py);
 # the paths run bf16, so their launches (and those of K2 and K7–K10) must
 # all go through 'mma_bf16'.
@@ -1390,13 +1540,14 @@ def counters():
     from awsegbench_torch.ops import depthkernels_train as dk
     from awsegbench_torch.ops import headkernels_train as ht
     from awsegbench_torch.ops import ms_deform_attn as msda
+    from awsegbench_torch.ops.bn_act import bn_act
     return {fn.__name__: fn for fn in (
         attention.sr_attention, headkernels.seg_core,
         splat.splat_coverage_batched, splat.splat_coverage_windowed,
         splat.splat_coverage_tiled, attention.sr_attention_backward,
         ht.seg_core_train, ht.seg_core_train_backward, dk.d1_core_train,
         dk.d1_core_train_backward, ht.neighbor_pp_adjoint,
-        msda.ms_deform_attn)}
+        msda.ms_deform_attn, bn_act)}
 
 
 def count_launches(run):
@@ -1905,11 +2056,14 @@ def phase_mask2former(dev):
     ev = Evaluator(create_model(M2F_CFG, device=dev, seed=0), config,
                    auroc_mode='histogram', device=dev)
     res, launches = run_counted(lambda: ev.run(loader, seed=1),
-                                ('ms_deform_attn', 'splat_coverage_batched'),
-                                'mask2former sweep')
+                                ('ms_deform_attn', 'splat_coverage_batched',
+                                 'bn_act'), 'mask2former sweep')
     if launches['ms_deform_attn'] != M2F_LAYERS * M2F_SWEEP_BATCHES:
         raise AssertionError(f'mask2former sweep: {launches["ms_deform_attn"]}'
                              f' K11 launches, not {M2F_LAYERS} a batch')
+    if launches['bn_act'] != M2F_BNS * M2F_SWEEP_BATCHES:
+        raise AssertionError(f'mask2former sweep: {launches["bn_act"]} K12 '
+                             f'launches, not {M2F_BNS} a batch')
     n_valid = check_sweep('mask2former sweep', ev, res, loader, False,
                           members=False)
     torch.cuda.reset_peak_memory_stats()
@@ -2642,7 +2796,7 @@ def phase_weather_extras(dev):
     return launches
 
 
-SERVING_COUNTERS = ('sr_attention', 'seg_core')
+SERVING_COUNTERS = ('sr_attention', 'seg_core', 'bn_act')
 SERVING_LARGE = K5_SHAPES[0]          # Cityscapes' 1024×2048, batch 1
 
 
@@ -2671,7 +2825,7 @@ def phase_serving(dev):
     ensemble with depth heads, seeded): a ``'poly'`` bf16 artifact at
     512×1024 exported on the card, saved and loaded back through
     ``ServingModel.load``. One batch-1 request counted (K1 8 launches, K2
-    1, K3 none: serving applies no corruption); its batch-8 outputs against
+    1, K3 none: serving applies no corruption; K12 66); its batch-8 outputs against
     the in-process ``build_serving_fn`` forward on the same weights; images
     per second at batch 8 (input on the card, and from the host), p50/p90
     latency at batch 1 from the host (host clock, synchronised), the same
@@ -2720,9 +2874,11 @@ def phase_serving(dev):
         out1, launches = run_counted(lambda: sm.predict(x1_host),
                                      SERVING_COUNTERS, 'serving')
         if (launches['sr_attention'], launches['seg_core'],
-                launches['splat_coverage_batched']) != (8, 1, 0):
+                launches['splat_coverage_batched'],
+                launches['bn_act']) != (8, 1, 0, ENSEMBLE_BNS):
             raise AssertionError(f'serving: a request launched {launches}, '
-                                 'expected K1 8, K2 1, K3 0')
+                                 f'expected K1 8, K2 1, K3 0, K12 '
+                                 f'{ENSEMBLE_BNS}')
         got = sm.predict(x8_host)
         serve = build_serving_fn(model, precision='bf16')
         want = serve(x8)
@@ -2789,8 +2945,9 @@ def phase_serving(dev):
         res['cpu_export_on_card_launches'] = moved_launches
         res['cpu_export_vs_card_export_max_abs_diff'] = {
             k: max_err(moved[k], card[k]) for k in card}
-        if (moved_launches['sr_attention'], moved_launches['seg_core']) \
-                != (8, 1) or moved_launches['sr_attention.by_design'][
+        if (moved_launches['sr_attention'], moved_launches['seg_core'],
+                moved_launches['bn_act']) != (8, 1, ENSEMBLE_BNS) \
+                or moved_launches['sr_attention.by_design'][
                     'simt_f32'] != 8 or any(
                     res['cpu_export_vs_card_export_max_abs_diff'].values()):
             raise AssertionError(f'serving: the CPU-exported artifact on '
@@ -3080,11 +3237,12 @@ def phase_parallel(dev):
     def run_mono():
         return model(xb[None])
 
-    til, launches = run_counted(run_tiled, ('sr_attention', 'seg_core'),
-                                'tiled eval')
-    if (launches['sr_attention'], launches['seg_core']) != (8, 1):
+    til, launches = run_counted(run_tiled, ('sr_attention', 'seg_core',
+                                            'bn_act'), 'tiled eval')
+    if (launches['sr_attention'], launches['seg_core'],
+            launches['bn_act']) != (8, 1, ENSEMBLE_BNS):
         raise AssertionError(f'parallel: a tiled forward launched {launches}'
-                             ', expected K1 8 and K2 1')
+                             f', expected K1 8, K2 1 and K12 {ENSEMBLE_BNS}')
     mono = run_mono()
 
     def agree(a, b):
@@ -3347,7 +3505,12 @@ def tp_rank(rank: int, port: int, tmp: str, device: str) -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tp16, out['eval_launches'] = run_counted(
-            forward, ('sr_attention', 'seg_core'), f'rank {rank} tp eval')
+            forward, ('sr_attention', 'seg_core', 'bn_act'),
+            f'rank {rank} tp eval')
+        if out['eval_launches']['bn_act'] != ENSEMBLE_BNS:
+            raise AssertionError(f'rank {rank} tp eval: '
+                                 f'{out["eval_launches"]["bn_act"]} K12 '
+                                 f'launches, not {ENSEMBLE_BNS}')
         out['bf16_eval_ms'] = (time.perf_counter() - t0) * 1e3
         tp_argmax = tp16['segmentation'].argmax(-1)
         del tp16, model
@@ -3782,7 +3945,7 @@ def main() -> int:
     # floor, K8 and K10 their device time without dropout
     extra = ('design', 'device_ms', 'device_ms_rate0', 'library_device_ms',
              'exp_bound_ms', 'kron_bound_ms', 'hash_bound_ms', 'hash_ops',
-             'by_hw')
+             'by_hw', 'block')
     paths = {'eval': eval_launches, 'train': train_launches,
              'single_image': single_launches,
              'evaluator': evaluator_launches,
@@ -3817,8 +3980,13 @@ def main() -> int:
                 line['launches_by_design_by_path'] = {
                     p: c[f'{name}.by_design'] for p, c in paths.items()}
             summary.append(line)
-    if len(summary) != 12:
-        raise AssertionError(f'{len(summary)} kernels in the summary, not 12')
+    if len(summary) != 13:
+        raise AssertionError(f'{len(summary)} kernels in the summary, not 13')
+    # K12 is eval BN: every eval path launches it, no train path
+    k12 = {p: c['bn_act'] for p, c in paths.items()}
+    if any(k12[p] <= 0 for p in EVAL_PATHS) or any(k12[p]
+                                                    for p in TRAIN_PATHS):
+        raise AssertionError(f'K12 launches by path: {k12}')
     emit({'kernels': summary})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -2,14 +2,16 @@
 the CPU.
 
 * ``torch.library.opcheck`` on ``awseg::sr_attention`` (K1) and
-  ``awseg::seg_core`` (K2) at ragged shapes, f32 and bf16: schema, fake
+  ``awseg::seg_core`` (K2) at ragged shapes (``awseg::bn_act``, K12, in
+  ``tests/test_torch_bn_act.py``), f32 and bf16: schema, fake
   implementation and the traced (dynamic-shape) dispatch all agree with
   the CPU kernel.
 * Each op has a CPU and a CUDA kernel and nothing else: no default
   implementation that would run plain code on another device.
 * The exported serving graph of the ensemble holds exactly 8
   ``awseg.sr_attention`` nodes (one per MiT block) and 1
-  ``awseg.seg_core``, and no softmax of the attention: on the CPU, the
+  ``awseg.seg_core``, 66 ``awseg.bn_act`` (every BN of both members),
+  and no softmax of the attention: on the CPU, the
   guard against a trace that records the plain version, which a moved
   artifact would then run on the card.
 * ``_device.const`` after an export in the same process serves real
@@ -40,7 +42,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ROOT = Path(__file__).resolve().parents[1]
-OPS = ('awseg::sr_attention', 'awseg::seg_core')
+OPS = ('awseg::sr_attention', 'awseg::seg_core', 'awseg::bn_act')
 
 
 def _rand(shape, dtype, seed):
@@ -111,6 +113,7 @@ def test_exported_graph_holds_the_ops(exported):
     counts = Counter(str(n.target) for n in nodes)
     assert counts['awseg.sr_attention.default'] == 8
     assert counts['awseg.seg_core.default'] == 1
+    assert counts['awseg.bn_act.default'] == 66
     for n in nodes:
         if 'softmax' in str(n.target):
             stack = ' '.join(str(v) for v in
