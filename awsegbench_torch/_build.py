@@ -2,10 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``csrc/build/``
-the first time a wrapper needs it, then loaded with ``ctypes``. The library
+the first time a launch needs it, then loaded with ``ctypes``. The library
 file name carries a hash of the source, the shared headers (``csrc/*.cuh``)
 and the flags, so an edited source or header is rebuilt and a stale library
 is never loaded. A failed build raises with nvcc's output.
+
+Every kernel is launched by :func:`launch`, the CUDA kernel of an
+``awseg::`` op (``ops/library.py``), which counts it in the launch table
+(``launches``, ``design_launches``).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -20,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -34,6 +39,11 @@ EXTRA_FLAGS = {'splat': ['-fmad=false']}
 KERNELS = ('sr_attention', 'sr_attention_bwd', 'seg_head', 'seg_head_train',
            'depth_stage1_train', 'pp_adjoint', 'splat', 'ms_deform_attn',
            'bn_act')
+
+# The launch table: the kernels launched since it was last cleared, by op
+# name and, for the ops with two designs, by (op name, design).
+launches: Counter[str] = Counter()
+design_launches: Counter[tuple[str, str]] = Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -97,17 +107,6 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``symbol`` of ``csrc/<name>.cu``, its argument
-    types declared on first use only (``ctypes.c_void_p`` for pointers and
-    the stream, ``ctypes.c_int`` for ints; it returns a CUDA error code)."""
-    fn = getattr(load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def operand(t):
     """``t`` contiguous and 16-byte aligned, as the tensor-core kernels copy
     rows with 16-byte ``cp.async``."""
@@ -115,23 +114,32 @@ def operand(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
-    if rc != 0:
-        lib.awseg_error_string.argtypes = [ctypes.c_int]
-        lib.awseg_error_string.restype = ctypes.c_char_p
-        msg = lib.awseg_error_string(rc).decode()
-        raise RuntimeError(f'{what}: CUDA launch failed ({rc}: {msg})')
+def launch(op: str, name: str, symbol: str, argtypes: list, *args,
+           design: str | None = None) -> None:
+    """Launch the C entry point ``symbol`` of ``csrc/<name>.cu`` for the op
+    ``op`` on PyTorch's current stream, raise if it returned a CUDA error,
+    and count it in the launch table (under ``design`` too, when given).
 
-
-def stream_ptr(t) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device, for a launch: the
-    raw handle, as PyTorch's own Triton launcher reads it
-    (``torch.cuda.current_stream`` builds a Stream object first, a large
-    share of a small kernel's host time per launch)."""
+    ``argtypes`` are the C types of ``args`` (declared on the first call):
+    ``ctypes.c_void_p`` for a tensor (passed as its data pointer) or None
+    (a null pointer), ``ctypes.c_int`` and the like for numbers; the first
+    is a tensor. The stream goes last: the raw handle of its device, as
+    PyTorch's own Triton launcher reads it (``torch.cuda.current_stream``
+    builds a Stream object first, a large share of a small kernel's host
+    time)."""
     import torch
-    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [*argtypes, ctypes.c_void_p], ctypes.c_int
+    tensor = torch.Tensor
+    rc = fn(*[a.data_ptr() if isinstance(a, tensor) else a for a in args],
+            torch._C._cuda_getCurrentRawStream(args[0].device.index))
+    if rc != 0:
+        err = lib.awseg_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f'{op}: CUDA launch failed ({rc}: '
+                           f'{err(rc).decode()})')
+    launches[op] += 1
+    if design is not None:
+        design_launches[op, design] += 1

@@ -1,9 +1,9 @@
-"""Tensor ops and the wrappers of the hand-written CUDA kernels.
+"""Tensor ops and the hand-written CUDA kernels, each an ``awseg::`` op.
 
-Importing these builds and loads no kernel: each wrapper builds its
-library with ``nvcc`` at its first launch on a CUDA tensor (``_build.py``).
-The JAX package's ``sr_attention_reference`` is ``sr_attention_plain``
-here. Importing the package registers the custom ops of ``library.py``.
+Importing these builds and loads no kernel: a kernel's library is built
+with ``nvcc`` at its first launch on a CUDA tensor (``_build.py``). The
+JAX package's ``sr_attention_reference`` is ``sr_attention_plain`` here.
+Importing the package registers the custom ops of ``library.py``.
 """
 
 from .attention import sr_attention, sr_attention_plain

@@ -1,16 +1,16 @@
 """Spatial-reduction attention core (counterpart of ``awsegbench/ops/attention.py``).
 
 ``sr_attention(q, k, v, scale) = softmax(q·kᵀ·scale)·v`` on ``[G, N, D]``
-queries and ``[G, M, D]`` reduced keys/values. On CUDA tensors it is a
-``torch.autograd.Function``: the forward launches ``csrc/sr_attention.cu``
-(online softmax, K/V streamed through shared memory, D ∈ {32, 64}) and the
-backward ``csrc/sr_attention_bwd.cu`` (P recomputed, dq per query tile,
-dk/dv per key tile over splits of the queries, summed in order). Each file
-holds two designs, chosen by :func:`_design` from the dtype: bf16 runs on
-the tensor cores (``mma.sync``), f32 on the CUDA cores (TF32 would break
-f32 parity). On CPU tensors it runs :func:`sr_attention_plain`, the
-einsum/softmax of the JAX package's ``sr_attention_reference``, and plain
-autograd through it.
+queries and ``[G, M, D]`` reduced keys/values, the op
+``awseg::sr_attention``. On CUDA tensors it launches
+``csrc/sr_attention.cu`` (online softmax, K/V streamed through shared
+memory, D ∈ {32, 64}) and its gradient ``csrc/sr_attention_bwd.cu`` (P
+recomputed, dq per query tile, dk/dv per key tile over splits of the
+queries, summed in order). Each file holds two designs, chosen by
+:func:`_design` from the dtype: bf16 runs on the tensor cores
+(``mma.sync``), f32 on the CUDA cores (TF32 would break f32 parity). On
+CPU tensors it runs :func:`sr_attention_plain`, the einsum/softmax of the
+JAX package's ``sr_attention_reference``, and plain autograd through it.
 """
 
 from __future__ import annotations
@@ -65,14 +65,6 @@ def _check(q, k, v, what) -> str:
     return _design(q.dtype, q.shape[2])
 
 
-def _entry(lib: str, symbol: str, n_ptrs: int, n_ints: int):
-    """The C entry point ``symbol`` of ``csrc/<lib>.cu``: pointers, ints,
-    the scale, the stream."""
-    return _build.entry(lib, symbol, [ctypes.c_void_p] * n_ptrs
-                        + [ctypes.c_int] * n_ints
-                        + [ctypes.c_float, ctypes.c_void_p])
-
-
 def _launch(q, k, v, scale):
     design = _check(q, k, v, 'sr_attention')
     g, n, d = q.shape
@@ -81,13 +73,11 @@ def _launch(q, k, v, scale):
     out = torch.empty_like(q)
     if g * n == 0 or m == 0:
         return out
-    rc = _entry('sr_attention', 'sr_attention_launch', 4, 5)(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        g, n, m, d, int(q.dtype == torch.bfloat16), float(scale),
-        _build.stream_ptr(q))
-    _build.check(_build.load('sr_attention'), rc, 'sr_attention')
-    sr_attention.launches += 1
-    sr_attention.launches_by_design[design] += 1
+    _build.launch('sr_attention', 'sr_attention', 'sr_attention_launch',
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                  + [ctypes.c_float], q, k, v, out, g, n, m, d,
+                  int(q.dtype == torch.bfloat16), float(scale),
+                  design=design)
     return out
 
 
@@ -120,14 +110,12 @@ def _launch_backward(q, k, v, dout, scale):
     stats = torch.empty((3, g, n), **f32)
     pk = torch.empty((splits, g, m, d), **f32)
     pv = torch.empty((splits, g, m, d), **f32)
-    rc = _entry('sr_attention_bwd', 'sr_attention_bwd_launch', 10, 6)(
-        *(_build.ptr(t) for t in (q, k, v, dout, dq, stats, pk, pv, dk, dv)),
-        g, n, m, d, int(q.dtype == torch.bfloat16), _SPLIT_ROWS, float(scale),
-        _build.stream_ptr(q))
-    _build.check(_build.load('sr_attention_bwd'), rc,
-                 'sr_attention_backward')
-    sr_attention_backward.launches += 1
-    sr_attention_backward.launches_by_design[design] += 1
+    _build.launch('sr_attention_backward', 'sr_attention_bwd',
+                  'sr_attention_bwd_launch', [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] * 6 + [ctypes.c_float], q, k, v, dout,
+                  dq, stats, pk, pv, dk, dv, g, n, m, d,
+                  int(q.dtype == torch.bfloat16), _SPLIT_ROWS, float(scale),
+                  design=design)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -135,47 +123,14 @@ def sr_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           dout: torch.Tensor, scale: float):
     """(dq, dk, dv) of :func:`sr_attention` for the output gradient
     ``dout`` [G, N, D]; dq in q's dtype, dk/dv summed in f32 and returned
-    in k/v's dtype. CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
-    if q.is_cuda:
-        return _launch_backward(q, k, v, dout, scale)
-    return sr_attention_backward_plain(q, k, v, dout, scale)
-
-
-sr_attention_backward.launches = 0
-sr_attention_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
-
-
-class _SRAttention(torch.autograd.Function):
-    """K1 forward, K6 backward; saves q, k, v (P is recomputed)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _launch(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = sr_attention_backward(q, k, v, dout.contiguous(),
-                                           ctx.scale)
-        return dq, dk, dv, None
+    in k/v's dtype: the op ``awseg::sr_attention_backward``, K6 on CUDA
+    tensors, the plain version on CPU tensors."""
+    return torch.ops.awseg.sr_attention_backward(q, k, v, dout, scale)
 
 
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """``softmax(q·kᵀ·scale)·v``: q [G, N, D], k/v [G, M, D] → [G, N, D]
-    in q's dtype. CUDA tensors launch the kernel (its backward kernel
-    under autograd), CPU tensors take the plain version. Without a
-    gradient it is the custom op ``awseg::sr_attention`` (``ops/
-    library.py``) on either device, so a traced graph holds the op."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.is_cuda:
-            return _SRAttention.apply(q, k, v, scale)
-        return sr_attention_plain(q, k, v, scale)
+    in q's dtype: the op ``awseg::sr_attention``, K1 on CUDA tensors (K6
+    under autograd), the plain version on CPU tensors."""
     return torch.ops.awseg.sr_attention(q, k, v, scale)
-
-
-sr_attention.launches = 0
-sr_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -4,12 +4,12 @@ counterpart in the JAX package, where XLA fused BN into the convs).
 ``bn_act(x, mean, var, weight, bias, eps, residual, relu)``: x [N, C, ...]
 (BN over channel dim 1) → ``act((x − mean)·(rsqrt(var + eps)·weight) +
 bias [+ residual])``, act ReLU where ``relu`` is set, else the identity.
-On CUDA tensors it launches ``csrc/bn_act.cu``: f32 arithmetic from bf16
-or f32 operands, rounded once to x's dtype, into a new tensor in x's
+It is the custom op ``awseg::bn_act`` (``ops/library.py``). On CUDA
+tensors it launches ``csrc/bn_act.cu``, eval only: f32 arithmetic from
+bf16 or f32 operands, rounded once to x's dtype, into a new tensor in x's
 layout. On CPU tensors it runs :func:`bn_act_plain`, the composition the
 models ran before the kernel, op for op. A CUDA tensor never takes the
-plain version. It is the custom op ``awseg::bn_act`` (``ops/library.py``)
-on either device; the op takes no gradient.
+plain version.
 
 The kernel takes x, and the residual, dense in one of two layouts, both
 in the same: channels-last (the NHWC models' convs give it) or
@@ -94,18 +94,12 @@ def _launch(x, mean, var, weight, bias, eps, residual=None, relu=False):
     if n == 0:
         return y
     inner = 1 if lay == 'nhwc' else n // (x.shape[0] * c)
-    rc = _build.entry('bn_act', 'bn_act_launch',
-                      [ctypes.c_void_p] * 7 + [ctypes.c_float,
-                                               ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_int,
-                                               ctypes.c_void_p])(
-        _build.ptr(x), None if residual is None else _build.ptr(residual),
-        _build.ptr(y), _build.ptr(mean), _build.ptr(var), _build.ptr(weight),
-        _build.ptr(bias), eps, n, c, inner, int(relu),
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
-    _build.check(_build.load('bn_act'), rc, 'bn_act')
-    bn_act.launches += 1
+    _build.launch('bn_act', 'bn_act', 'bn_act_launch',
+                  [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_int],
+                  x, residual, y, mean, var, weight, bias, eps, n, c, inner,
+                  int(relu), int(x.dtype == torch.bfloat16))
     return y
 
 
@@ -113,18 +107,8 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
            weight: torch.Tensor, bias: torch.Tensor, eps: float,
            residual: Optional[torch.Tensor] = None,
            relu: bool = False) -> torch.Tensor:
-    """The eval BN and its epilogue (module docstring): K12 on CUDA
-    tensors, the plain version on CPU tensors, through ``awseg::bn_act``.
-    With a gradient the CPU takes the plain version's autograd and the
-    card raises: the kernel is eval only."""
-    args = (x, mean, var, weight, bias, residual)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in args):
-        if x.is_cuda:
-            raise NotImplementedError('bn_act: the CUDA kernel is eval only')
-        return bn_act_plain(x, mean, var, weight, bias, eps, residual, relu)
+    """The eval BN and its epilogue (module docstring): the op
+    ``awseg::bn_act``, K12 on CUDA tensors, the plain version on CPU
+    tensors."""
     return torch.ops.awseg.bn_act(x, mean, var, weight, bias, float(eps),
                                   residual, bool(relu))
-
-
-bn_act.launches = 0

@@ -10,11 +10,11 @@ and including the second conv, runs here:
   products ``P [B, h, w, 9, C]``, border-exact.
 * **The core** (:func:`d1_core_train`): the phase passes, the batch-stat
   affine, ReLU and the counter-hash dropout, writing the post-dropout hidden
-  ``d1 [B, H, W, C]`` once. On CUDA tensors a ``torch.autograd.Function``
-  whose forward launches ``csrc/depth_stage1_train.cu`` K9 and whose
-  backward launches K10 (recompute, regenerate the mask, write ``dpp`` and
-  the sums of da1/dc1), then scatters ``dpp`` back to ``P``
-  (``neighbor_pp_adjoint``). It saves P, a1, c1 and the seed, never d1.
+  ``d1 [B, H, W, C]`` once (the op ``awseg::d1_core_train``). On CUDA
+  tensors K9 (``csrc/depth_stage1_train.cu``); its gradient launches K10
+  (recompute, regenerate the mask, write ``dpp`` and the sums of
+  da1/dc1), then scatters ``dpp`` back to ``P`` (``neighbor_pp_adjoint``).
+  It saves P, a1, c1 and the seed, never d1.
   K9 and K10 have the seg head's two designs: bf16 on the tensor cores
   (``mma_bf16``: K7's forward body storing the hidden, K8's backward body
   without the 1×1; C % 16 == 0) against the bf16-rounded kron table, as
@@ -40,11 +40,11 @@ import torch.nn.functional as F
 from .. import _build
 from ..parallel.collectives import global_rows, sync_sum
 from .._device import const
-from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx_bf16_k96, _design,
+from .headkernels import (_a2, _a2_dmajor, _ayx_bf16_k96, _design,
                           _neighbor_pp, coarse_partial_products)
 from .headkernels_train import (_core_from_pp, _core_params, border_hidden,
                                 dropout_keep_mask, kernel_seed,
-                                neighbor_pp_adjoint, seg_batch_stats)
+                                seg_batch_stats, split_sums)
 from .upconv import conv1_border_lines
 
 __all__ = ['d1_core_train', 'd1_core_train_backward', 'd1_core_train_plain',
@@ -53,7 +53,7 @@ __all__ = ['d1_core_train', 'd1_core_train_backward', 'd1_core_train_plain',
 
 
 # ---------------------------------------------------------------------------
-# the core: plain version, kernels, autograd Function
+# the core: plain version, kernels
 # ---------------------------------------------------------------------------
 
 def d1_core_train_plain(P, a1, c1, seed, rate: float, r: int):
@@ -108,19 +108,12 @@ def _launch_forward(P, a1, c1, seed, rate, r):
     b, h, w, _, c = P.shape
     thresh, inv_keep = _core_params(rate)
     out = torch.empty((b, h * r, w * r, c), dtype=P.dtype, device=P.device)
-    lib = _build.load('depth_stage1_train')
-    lib.d1_fwd_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_void_p] + [ctypes.c_int] * 6
-        + [ctypes.c_void_p])
-    lib.d1_fwd_launch.restype = ctypes.c_int
-    rc = lib.d1_fwd_launch(
-        *(_build.ptr(t) for t in (P, ay, ax, a1, c1, seed)), thresh, inv_keep,
-        int(rate > 0.0), _build.ptr(out), b, h, w, c, r,
-        int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
-    _build.check(lib, rc, 'd1_core_train')
-    d1_core_train.launches += 1
-    d1_core_train.launches_by_design[design] += 1
+    _build.launch('d1_core_train', 'depth_stage1_train', 'd1_fwd_launch',
+                  [ctypes.c_void_p] * 6 + [ctypes.c_uint, ctypes.c_float,
+                                           ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_int] * 6, P, ay, ax, a1, c1, seed, thresh,
+                  inv_keep, int(rate > 0.0), out, b, h, w, c, r,
+                  int(P.dtype == torch.bfloat16), design=design)
     return out
 
 
@@ -137,51 +130,24 @@ def _launch_backward(P, a1, c1, seed, dd1, rate, r):
                        device=P.device)
     sums = torch.empty(2 * c, dtype=torch.float32, device=P.device)
     kron = const(_ayx_bf16_k96, r, device=P.device, dtype=torch.bfloat16)
-    lib = _build.load('depth_stage1_train')
-    lib.d1_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    lib.d1_bwd_launch.restype = ctypes.c_int
-    rc = lib.d1_bwd_launch(
-        *(_build.ptr(t) for t in (P, ay, ax, a1, c1, dd1, seed)), thresh,
-        inv_keep, int(rate > 0.0),
-        *(_build.ptr(t) for t in (dpp, part, sums, kron)), b, h, w, c, r,
-        int(P.dtype == torch.bfloat16), _build.stream_ptr(P))
-    _build.check(lib, rc, 'd1_core_train_backward')
-    d1_core_train_backward.launches += 1
-    d1_core_train_backward.launches_by_design[design] += 1
-    da1, dc1 = sums.split([c, c])
-    return dpp, da1, dc1
+    _build.launch('d1_core_train_backward', 'depth_stage1_train',
+                  'd1_bwd_launch',
+                  [ctypes.c_void_p] * 7 + [ctypes.c_uint, ctypes.c_float,
+                                           ctypes.c_int]
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6, P, ay, ax,
+                  a1, c1, dd1, seed, thresh, inv_keep, int(rate > 0.0), dpp,
+                  part, sums, kron, b, h, w, c, r,
+                  int(P.dtype == torch.bfloat16), design=design)
+    return dpp, sums
 
 
 def d1_core_train_backward(P, a1, c1, seed, dd1, rate: float, r: int):
-    """K10: (dpp, da1, dc1) for the output gradient dd1. CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
-    if P.is_cuda:
-        return _launch_backward(P, a1, c1, seed, dd1, rate, r)
-    return d1_core_train_backward_plain(P, a1, c1, seed, dd1, rate, r)
-
-
-d1_core_train_backward.launches = 0
-d1_core_train_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
-
-
-class _D1CoreTrain(torch.autograd.Function):
-    """K9 forward, K10 backward; saves P, a1, c1 and the seed, never d1."""
-
-    @staticmethod
-    def forward(ctx, P, a1, c1, seed, rate, r):
-        ctx.save_for_backward(P, a1, c1, seed)
-        ctx.rate, ctx.r = rate, r
-        return _launch_forward(P, a1, c1, seed, rate, r)
-
-    @staticmethod
-    def backward(ctx, dd1):
-        P, a1, c1, seed = ctx.saved_tensors
-        dpp, da1, dc1 = d1_core_train_backward(P, a1, c1, seed, dd1,
-                                               ctx.rate, ctx.r)
-        dP = neighbor_pp_adjoint(dpp)
-        return dP, da1.to(a1.dtype), dc1.to(c1.dtype), None, None, None
+    """K10: (dpp, da1, dc1) for the output gradient dd1, the op
+    ``awseg::d1_core_train_backward``. CUDA tensors launch the kernel, CPU
+    tensors take the plain version."""
+    dpp, sums = torch.ops.awseg.d1_core_train_backward(P, a1, c1, seed, dd1,
+                                                       rate, r)
+    return (dpp, *split_sums(sums, (a1, c1)))
 
 
 def d1_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
@@ -189,15 +155,9 @@ def d1_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
     """Depth stage-1 core: phase passes → affine (a1, c1) → ReLU → hash
     dropout: P [B, h, w, 9, C] → d1 [B, h·r, w·r, C] (interior values; the
     1-px border is pasted after). ``seed`` is an int32 tensor on P's
-    device. CUDA tensors launch K9 (K10 under autograd), CPU tensors take
-    the plain version."""
-    if P.is_cuda:
-        return _D1CoreTrain.apply(P, a1, c1, seed, rate, r)
-    return d1_core_train_plain(P, a1, c1, seed, rate, r)
-
-
-d1_core_train.launches = 0
-d1_core_train.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    device. The op ``awseg::d1_core_train``: CUDA tensors launch K9 (K10
+    and the scatter under autograd), CPU tensors take the plain version."""
+    return torch.ops.awseg.d1_core_train(P, a1, c1, seed, rate, r)
 
 
 # ---------------------------------------------------------------------------

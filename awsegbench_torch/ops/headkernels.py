@@ -9,9 +9,10 @@ conv1×1``. Around the kernel, in plain torch as in the JAX package:
 * the exact 1-px border lines (``_paste_seg_borders``), where the conv's
   zero padding differs from the clamped interior formula.
 
-The core, ``seg_core``, turns ``P`` into full-resolution logits without
-storing the full-resolution 256-channel hidden: on a CUDA tensor it launches
-``csrc/seg_head.cu`` (K2); on a CPU tensor it runs :func:`seg_core_plain`.
+The core, ``seg_core`` (the op ``awseg::seg_core``, ``ops/library.py``),
+turns ``P`` into full-resolution logits without storing the full-resolution
+256-channel hidden: on a CUDA tensor it launches ``csrc/seg_head.cu`` (K2),
+eval only; on a CPU tensor it runs :func:`seg_core_plain`.
 K2 has two designs, chosen by :func:`_design` from the dtype: bf16 runs on
 the tensor cores (``mma_bf16``: one product against the TPU kernel's
 ``kron(Ay, Ax)`` phase table, whose entries it rounds to bf16 as the TPU
@@ -174,9 +175,6 @@ def check_shapes(P, wp, a1, c1, bp, r, what) -> str:
 
 def _launch(P, a1, c1, wp, bp, r):
     design = check_shapes(P, wp, a1, c1, bp, r, 'seg_core')
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (P, a1, c1, wp, bp)):
-        raise NotImplementedError('seg_core: the CUDA kernel is eval only')
     b, h, w, _, c = P.shape
     nc = wp.shape[1]
     dev = P.device
@@ -187,36 +185,20 @@ def _launch(P, a1, c1, wp, bp, r):
     ax = const(_a2_dmajor, r, device=dev)
     a1, c1, bp = (t.to(**f32).contiguous() for t in (a1, c1, bp))
     out = torch.empty((b, h * r, w * r, nc), dtype=P.dtype, device=dev)
-    rc = _build.entry('seg_head', 'seg_head_launch',
-                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                      + [ctypes.c_void_p])(
-        _build.ptr(P), _build.ptr(ay), _build.ptr(ax), _build.ptr(a1),
-        _build.ptr(c1), _build.ptr(wp), _build.ptr(bp), _build.ptr(out),
-        b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
-        _build.stream_ptr(P))
-    _build.check(_build.load('seg_head'), rc, 'seg_core')
-    seg_core.launches += 1
-    seg_core.launches_by_design[design] += 1
+    _build.launch('seg_core', 'seg_head', 'seg_head_launch',
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7, P, ay, ax, a1,
+                  c1, wp, bp, out, b, h, w, c, r, nc,
+                  int(P.dtype == torch.bfloat16), design=design)
     return out
 
 
 def seg_core(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
              wp: torch.Tensor, bp: torch.Tensor, r: int) -> torch.Tensor:
     """Fused phase passes + affine + ReLU + 1×1: P [B, h, w, 9, C] →
-    [B, h·r, w·r, nc] (interior values; the 1-px border is pasted after).
-    CUDA tensors launch the kernel, CPU tensors take the plain version.
-    Without a gradient it is the custom op ``awseg::seg_core`` (``ops/
-    library.py``) on either device, so a traced graph holds the op."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (P, a1, c1, wp, bp)):
-        if P.is_cuda:
-            return _launch(P, a1, c1, wp, bp, r)
-        return seg_core_plain(P, a1, c1, wp, bp, r)
+    [B, h·r, w·r, nc] (interior values; the 1-px border is pasted after):
+    the op ``awseg::seg_core``, K2 on CUDA tensors, the plain version on
+    CPU tensors."""
     return torch.ops.awseg.seg_core(P, a1, c1, wp, bp, r)
-
-
-seg_core.launches = 0
-seg_core.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def coarse_partial_products(f: torch.Tensor,

@@ -16,12 +16,12 @@ without storing the full-resolution 256-channel hidden:
   same bits as the JAX package's, so the forward kernel, the backward
   kernel, the border strips and the plain version draw one mask with no
   stored state.
-* **The core** (:func:`seg_core_train`): on CUDA tensors a
-  ``torch.autograd.Function`` whose forward launches ``csrc/seg_head_train.cu``
-  K7 and whose backward launches K8 (recompute, regenerate the mask, write
-  ``dpp`` and the sums of da1/dc1/dwp/dbp), then scatters ``dpp`` back to
-  ``P`` (:func:`neighbor_pp_adjoint`, ``csrc/pp_adjoint.cu``). It saves
-  ``P``, a1, c1, wp and the seed, never the hidden. K7 and K8 have K2's two
+* **The core** (:func:`seg_core_train`, the op ``awseg::seg_core_train``):
+  on CUDA tensors K7 (``csrc/seg_head_train.cu``); its gradient launches
+  K8 (recompute, regenerate the mask, write ``dpp`` and the sums of
+  da1/dc1/dwp/dbp), then scatters ``dpp`` back to ``P``
+  (:func:`neighbor_pp_adjoint`, ``csrc/pp_adjoint.cu``). It saves ``P``,
+  a1, c1, wp, bp and the seed, never the hidden. K7 and K8 have K2's two
   designs (``headkernels._design``): bf16 on the tensor cores against the
   bf16-rounded kron table, as the TPU kernel rounds it, with the hash
   dropout in registers (K8 forms fine with K7's own code); f32 on the CUDA
@@ -48,9 +48,8 @@ import torch.nn.functional as F
 from .. import _build
 from ..parallel.collectives import global_rows, sync_sum
 from .._device import const
-from .headkernels import (DESIGNS, _a2, _a2_dmajor, _ayx, _ayx_bf16_k96,
-                          _neighbor_pp, check_shapes, coarse_partial_products,
-                          phase_passes)
+from .headkernels import (_a2, _a2_dmajor, _ayx, _ayx_bf16_k96, _neighbor_pp,
+                          check_shapes, coarse_partial_products, phase_passes)
 from .upconv import conv1_border_lines
 
 _M1 = 0x7FEB352D
@@ -238,7 +237,7 @@ def seg_batch_stats(P: torch.Tensor, r: int,
 
 
 # ---------------------------------------------------------------------------
-# the core: plain version, kernels, autograd Function
+# the core: plain version, kernels
 # ---------------------------------------------------------------------------
 
 def _core_from_pp(pp, a1, c1, seed, rate, r, dtype, wp=None, bp=None,
@@ -325,28 +324,20 @@ def _launch_pp_adjoint(dpp):
     dpp = dpp.contiguous()
     b, h, w, _, c = dpp.shape
     out = torch.empty((b, h, w, 9, c), dtype=dpp.dtype, device=dpp.device)
-    rc = _build.entry('pp_adjoint', 'pp_adjoint_launch',
-                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                      + [ctypes.c_void_p])(
-        _build.ptr(dpp), _build.ptr(out), b, h, w, c,
-        int(dpp.dtype == torch.bfloat16), _build.stream_ptr(dpp))
-    _build.check(_build.load('pp_adjoint'), rc, 'neighbor_pp_adjoint')
-    neighbor_pp_adjoint.launches += 1
+    _build.launch('neighbor_pp_adjoint', 'pp_adjoint', 'pp_adjoint_launch',
+                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5, dpp, out, b, h,
+                  w, c, int(dpp.dtype == torch.bfloat16))
     return out
 
 
 def neighbor_pp_adjoint(dpp: torch.Tensor) -> torch.Tensor:
     """dpp [B, h, w, 81, C] → dP [B, h, w, 9, C] in dpp's dtype (the train
     backwards' gradient of P, which dpp shares its dtype with): the
-    transpose of the neighbourhood gather. CUDA tensors launch
+    transpose of the neighbourhood gather, the op
+    ``awseg::neighbor_pp_adjoint``. CUDA tensors launch
     ``csrc/pp_adjoint.cu``, which sums in f32 in the plain version's
     order; CPU tensors take :func:`_neighbor_pp_adjoint`."""
-    if dpp.is_cuda:
-        return _launch_pp_adjoint(dpp)
-    return _neighbor_pp_adjoint(dpp).to(dpp.dtype)
-
-
-neighbor_pp_adjoint.launches = 0
+    return torch.ops.awseg.neighbor_pp_adjoint(dpp)
 
 
 def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
@@ -362,9 +353,9 @@ def _kernel_args(P, a1, c1, wp, bp, seed, r, what):
 
 
 # pointers (8), thresh, 1/keep, dropout on; then the forward's out or the
-# backward's dpp, part, sums; B, h, w, C, r, nc, bf16; the stream
+# backward's dpp, part, sums; B, h, w, C, r, nc, bf16
 _HEAD = [ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int]
-_TAIL = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TAIL = [ctypes.c_int] * 7
 
 
 def _launch_forward(P, a1, c1, wp, bp, seed, rate, r):
@@ -374,14 +365,10 @@ def _launch_forward(P, a1, c1, wp, bp, seed, rate, r):
     nc = wp.shape[1]
     thresh, inv_keep = _core_params(rate)
     out = torch.empty((b, h * r, w * r, nc), dtype=P.dtype, device=P.device)
-    rc = _build.entry('seg_head_train', 'seg_train_fwd_launch',
-                      _HEAD + [ctypes.c_void_p] + _TAIL)(
-        *(_build.ptr(t) for t in args), thresh, inv_keep, int(rate > 0.0),
-        _build.ptr(out), b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
-        _build.stream_ptr(P))
-    _build.check(_build.load('seg_head_train'), rc, 'seg_core_train')
-    seg_core_train.launches += 1
-    seg_core_train.launches_by_design[design] += 1
+    _build.launch('seg_core_train', 'seg_head_train', 'seg_train_fwd_launch',
+                  _HEAD + [ctypes.c_void_p] + _TAIL, *args, thresh, inv_keep,
+                  int(rate > 0.0), out, b, h, w, c, r, nc,
+                  int(P.dtype == torch.bfloat16), design=design)
     return out
 
 
@@ -400,48 +387,29 @@ def _launch_backward(P, a1, c1, wp, bp, seed, dy, rate, r):
     part = torch.empty((b * h * w, cols), dtype=torch.float32, device=P.device)
     sums = torch.empty(cols, dtype=torch.float32, device=P.device)
     kron = const(_ayx_bf16_k96, r, device=P.device, dtype=torch.bfloat16)
-    rc = _build.entry('seg_head_train', 'seg_train_bwd_launch',
-                      _HEAD + [ctypes.c_void_p] * 4 + _TAIL)(
-        *(_build.ptr(t) for t in (*args[:6], dy, args[7])), thresh, inv_keep,
-        int(rate > 0.0), *(_build.ptr(t) for t in (dpp, part, sums, kron)),
-        b, h, w, c, r, nc, int(P.dtype == torch.bfloat16),
-        _build.stream_ptr(P))
-    _build.check(_build.load('seg_head_train'), rc, 'seg_core_train_backward')
-    seg_core_train_backward.launches += 1
-    seg_core_train_backward.launches_by_design[design] += 1
-    da1, dc1, dwp, dbp = sums.split([c, c, nc * c, nc])
-    return dpp, da1, dc1, dwp.reshape(c, nc), dbp
+    _build.launch('seg_core_train_backward', 'seg_head_train',
+                  'seg_train_bwd_launch',
+                  _HEAD + [ctypes.c_void_p] * 4 + _TAIL, *args[:6], dy,
+                  args[7], thresh, inv_keep, int(rate > 0.0), dpp, part,
+                  sums, kron, b, h, w, c, r, nc,
+                  int(P.dtype == torch.bfloat16), design=design)
+    return dpp, sums
+
+
+def split_sums(sums: torch.Tensor, like) -> tuple:
+    """K8's (K10's) column sums, the f32 gradients of a1, c1 (wp, bp),
+    parted in the shapes of the tensors ``like``."""
+    return tuple(g.view_as(t) for g, t in
+                 zip(sums.split([t.numel() for t in like]), like))
 
 
 def seg_core_train_backward(P, a1, c1, wp, bp, seed, dy, rate: float, r: int):
-    """K8: (dpp, da1, dc1, dwp, dbp) for the output gradient dy. CUDA
-    tensors launch the kernel, CPU tensors take the plain version."""
-    if P.is_cuda:
-        return _launch_backward(P, a1, c1, wp, bp, seed, dy, rate, r)
-    return seg_core_train_backward_plain(P, a1, c1, wp, bp, seed, dy, rate, r)
-
-
-seg_core_train_backward.launches = 0
-seg_core_train_backward.launches_by_design = dict.fromkeys(DESIGNS, 0)
-
-
-class _SegCoreTrain(torch.autograd.Function):
-    """K7 forward, K8 backward; saves P, a1, c1, wp, bp and the seed."""
-
-    @staticmethod
-    def forward(ctx, P, a1, c1, wp, bp, seed, rate, r):
-        ctx.save_for_backward(P, a1, c1, wp, bp, seed)
-        ctx.rate, ctx.r = rate, r
-        return _launch_forward(P, a1, c1, wp, bp, seed, rate, r)
-
-    @staticmethod
-    def backward(ctx, dy):
-        P, a1, c1, wp, bp, seed = ctx.saved_tensors
-        dpp, da1, dc1, dwp, dbp = seg_core_train_backward(
-            P, a1, c1, wp, bp, seed, dy, ctx.rate, ctx.r)
-        dP = neighbor_pp_adjoint(dpp)
-        return (dP, da1.to(a1.dtype), dc1.to(c1.dtype), dwp.to(wp.dtype),
-                dbp.to(bp.dtype), None, None, None)
+    """K8: (dpp, da1, dc1, dwp, dbp) for the output gradient dy, the op
+    ``awseg::seg_core_train_backward``. CUDA tensors launch the kernel,
+    CPU tensors take the plain version."""
+    dpp, sums = torch.ops.awseg.seg_core_train_backward(
+        P, a1, c1, wp, bp, seed, dy, rate, r)
+    return (dpp, *split_sums(sums, (a1, c1, wp, bp)))
 
 
 def seg_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
@@ -450,15 +418,9 @@ def seg_core_train(P: torch.Tensor, a1: torch.Tensor, c1: torch.Tensor,
     """Train core: phase passes → affine (a1, c1) → ReLU → hash dropout →
     1×1: P [B, h, w, 9, C] → [B, h·r, w·r, nc] (interior values; the 1-px
     border is pasted after). ``seed`` is an int32 tensor on P's device.
-    CUDA tensors launch K7 (K8 under autograd), CPU tensors take the plain
-    version."""
-    if P.is_cuda:
-        return _SegCoreTrain.apply(P, a1, c1, wp, bp, seed, rate, r)
-    return seg_core_train_plain(P, a1, c1, wp, bp, seed, rate, r)
-
-
-seg_core_train.launches = 0
-seg_core_train.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    The op ``awseg::seg_core_train``: CUDA tensors launch K7 (K8 and the
+    scatter under autograd), CPU tensors take the plain version."""
+    return torch.ops.awseg.seg_core_train(P, a1, c1, wp, bp, seed, rate, r)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,17 @@
-"""The hand-written eval kernels as ``torch.library`` custom ops.
+"""The one table of the ``awseg::`` custom ops: every hand-written kernel.
 
-``awseg::sr_attention`` (K1, ``csrc/sr_attention.cu``),
-``awseg::seg_core`` (K2, ``csrc/seg_head.cu``),
-``awseg::ms_deform_attn`` (K11, ``csrc/ms_deform_attn.cu``) and
-``awseg::bn_act`` (K12, ``csrc/bn_act.cu``) are graph nodes, so
-``torch.export`` records the op and not the Python dispatch around the
-kernel. Each op has a CPU kernel (the plain version), a CUDA kernel (the
-ctypes launch of the hand-written kernel, which counts the launch) and a
-fake implementation that computes the output's shape and dtype only, with
-no guard on the batch, so a symbolic batch survives the trace. No kernel is
-registered for any other device, so there the op raises.
-
-The ops take no gradient: training calls the autograd paths of
-``ops/attention.py`` and the train head kernels, never these ops. A
-serving artifact that holds the ops needs this module imported before
-``torch.export.load``; it imports only torch and the kernel modules.
+Each op's CPU kernel is the plain version and its CUDA kernel the launch
+(``_build.launch``, which counts it); no other device has a kernel. The
+public functions of ``ops/`` call the ops, so a traced graph holds them.
+Gradients (``register_autograd``): K1's is the op
+``awseg::sr_attention_backward`` (K6), K7's and K9's ``<name>_grad`` (K8
+or K10, then the scatter); each saves what its kernel recomputes from, and
+on the CPU is autograd through the plain forward. The eval kernels (K2,
+K11, K12) take the plain version's autograd on the CPU and raise on the
+card. The eval ops (K1, K2, K11, K12) have fakes that compute the output's
+shape and dtype with no guard on the batch, so a symbolic batch survives
+``torch.export``; a serving artifact needs this module imported before
+``torch.export.load``.
 """
 
 from __future__ import annotations
@@ -23,12 +20,92 @@ import functools
 
 import torch
 
-from . import attention, bn_act as bna, headkernels, ms_deform_attn as msda
+from . import attention, bn_act as bna, depthkernels_train as dk, splat
+from . import headkernels, headkernels_train as ht, ms_deform_attn as msda
 
-sr_attention = torch.library.custom_op(
-    'awseg::sr_attention', attention.sr_attention_plain, mutates_args=(),
-    device_types='cpu')
-sr_attention.register_kernel('cuda', attention._launch)
+# The launch table's keys (``_build.launches``): each op that launches a
+# kernel of csrc/, and the designs it chooses from by the dtype (counted
+# in ``_build.design_launches``).
+KERNEL_OPS: dict[str, tuple[str, ...]] = {}
+
+
+def _op(name: str, schema: str, cpu, cuda, designs=()):
+    """The op ``awseg::<name>`` of ``schema``: ``cpu`` on CPU tensors (an
+    output that is a view is copied, so that, as the launches' outputs, it
+    takes in-place writes under autograd), ``cuda`` on CUDA tensors;
+    entered in ``KERNEL_OPS`` with ``designs`` unless None."""
+    def cpu_kernel(*args):
+        out = cpu(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        outs = tuple(t.clone() if t._is_view() else t for t in outs)
+        return outs if isinstance(out, tuple) else outs[0]
+
+    op = torch.library.custom_op(f'awseg::{name}', cpu_kernel,
+                                 mutates_args=(), device_types='cpu',
+                                 schema=schema)
+    op.register_kernel('cuda', cuda)
+    if designs is not None:
+        KERNEL_OPS[name] = designs
+    return op
+
+
+def _plain_grad(plain, args, grad):
+    """Autograd through ``plain(*args)`` for the output gradient ``grad``:
+    the gradient of each floating-point tensor in ``args``, None for the
+    rest."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_()
+                  if isinstance(a, torch.Tensor) and a.is_floating_point()
+                  else a for a in args]
+        wrt = [i for i, a in enumerate(leaves)
+               if isinstance(a, torch.Tensor) and a.requires_grad]
+        got = dict(zip(wrt, torch.autograd.grad(
+            plain(*leaves), [leaves[i] for i in wrt], grad)))
+    return tuple(got.get(i) for i in range(len(args)))
+
+
+def _with_autograd(fn):
+    """``fn`` with autograd's dispatch keys back on, for the CPU kernels
+    that are autograd through a plain forward: an op's kernel runs below
+    autograd, where no operation records a graph."""
+    @functools.wraps(fn)
+    def kernel(*args):
+        excluded = torch._C._dispatch_tls_local_exclude_set()
+        for key in ('AutogradFunctionality', 'AutogradOther',
+                    'AutogradNestedTensor'):
+            excluded = excluded.remove(getattr(torch._C.DispatchKey, key))
+        with torch._C._ForceDispatchKeyGuard(
+                torch._C._dispatch_tls_local_include_set(), excluded):
+            return fn(*args)
+    return kernel
+
+
+def _eval_only(op, plain):
+    """Register the eval kernels' gradient rule on ``op``: the plain
+    version's autograd on CPU tensors; on CUDA tensors the forward raises
+    when a gradient is needed."""
+    def setup_context(ctx, inputs, output):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in inputs):
+            raise NotImplementedError(f'{op._name}: the CUDA kernel is eval '
+                                      'only')
+        is_tensor = [isinstance(a, torch.Tensor) for a in inputs]
+        ctx.save_for_backward(*(a if t else None
+                                for a, t in zip(inputs, is_tensor)))
+        ctx.rest = [None if t else a for a, t in zip(inputs, is_tensor)]
+
+    def backward(ctx, grad):
+        args = [a if t is None else t
+                for a, t in zip(ctx.rest, ctx.saved_tensors)]
+        return _plain_grad(plain, args, grad)
+
+    op.register_autograd(backward, setup_context=setup_context)
+
+
+# --- eval: K1 (and its backward, K6), K2, K11, K12
+
+sr_attention = _op(
+    'sr_attention', '(Tensor q, Tensor k, Tensor v, float scale) -> Tensor',
+    attention.sr_attention_plain, attention._launch, attention.DESIGNS)
 
 
 @sr_attention.register_fake
@@ -37,10 +114,32 @@ def _sr_attention_fake(q, k, v, scale):
     return q.new_empty(q.shape)
 
 
-seg_core = torch.library.custom_op(
-    'awseg::seg_core', headkernels.seg_core_plain, mutates_args=(),
-    device_types='cpu')
-seg_core.register_kernel('cuda', headkernels._launch)
+sr_attention_backward = _op(
+    'sr_attention_backward', '(Tensor q, Tensor k, Tensor v, Tensor dout, '
+    'float scale) -> (Tensor, Tensor, Tensor)',
+    _with_autograd(attention.sr_attention_backward_plain),
+    attention._launch_backward, attention.DESIGNS)
+
+
+def _sr_attention_setup(ctx, inputs, output):
+    q, k, v, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _sr_attention_grad(ctx, dout):
+    q, k, v = ctx.saved_tensors
+    return (*torch.ops.awseg.sr_attention_backward(
+        q, k, v, dout.contiguous(), ctx.scale), None)
+
+
+sr_attention.register_autograd(_sr_attention_grad,
+                               setup_context=_sr_attention_setup)
+
+seg_core = _op(
+    'seg_core', '(Tensor P, Tensor a1, Tensor c1, Tensor wp, Tensor bp, '
+    'int r) -> Tensor', headkernels.seg_core_plain, headkernels._launch,
+    headkernels.DESIGNS)
+_eval_only(seg_core, headkernels.seg_core_plain)
 
 
 @seg_core.register_fake
@@ -50,10 +149,10 @@ def _seg_core_fake(P, a1, c1, wp, bp, r):
     return P.new_empty((b, h * r, w * r, wp.shape[1]))
 
 
-ms_deform_attn = torch.library.custom_op(
-    'awseg::ms_deform_attn', msda.ms_deform_attn_plain, mutates_args=(),
-    device_types='cpu')
-ms_deform_attn.register_kernel('cuda', msda._launch)
+ms_deform_attn = _op(
+    'ms_deform_attn', '(Tensor value, int[] shapes, Tensor loc, Tensor attn)'
+    ' -> Tensor', msda.ms_deform_attn_plain, msda._launch)
+_eval_only(ms_deform_attn, msda.ms_deform_attn_plain)
 
 
 @ms_deform_attn.register_fake
@@ -63,9 +162,11 @@ def _ms_deform_attn_fake(value, shapes, loc, attn):
     return value.new_empty((b, loc.shape[1], m * d))
 
 
-bn_act = torch.library.custom_op(
-    'awseg::bn_act', bna.bn_act_plain, mutates_args=(), device_types='cpu')
-bn_act.register_kernel('cuda', bna._launch)
+bn_act = _op(
+    'bn_act', '(Tensor x, Tensor mean, Tensor var, Tensor weight, '
+    'Tensor bias, float eps, Tensor? residual=None, bool relu=False) -> '
+    'Tensor', bna.bn_act_plain, bna._launch)
+_eval_only(bn_act, bna.bn_act_plain)
 
 
 @bn_act.register_fake
@@ -78,3 +179,77 @@ def _bn_act_fake(x, mean, var, weight, bias, eps, residual=None, relu=False):
         t.dtype for t in (x, mean, var, weight, bias, residual)
         if t is not None))
     return torch.empty_like(x, dtype=dtype)
+
+
+# --- the splat masks: K3, K4, K5
+
+_SPLAT = '(Tensor params, int height, int width) -> Tensor'
+splat_coverage_batched = _op('splat_coverage_batched', _SPLAT,
+                             splat.splat_coverage_plain,
+                             splat._launch_batched)
+splat_coverage_windowed = _op('splat_coverage_windowed', _SPLAT,
+                              splat.splat_coverage_image_plain,
+                              splat._launch_windowed)
+splat_coverage_tiled = _op('splat_coverage_tiled', _SPLAT,
+                           splat.splat_coverage_image_plain,
+                           splat._launch_tiled)
+
+
+# --- train: K7/K8 and K9/K10, with the scatter
+
+def _packed(grads):
+    """(dP or dpp, the other gradients flat in f32, concatenated): K8's and
+    K10's column sums are one tensor (ops return no outputs that alias
+    each other; ``headkernels_train.split_sums`` parts them)."""
+    first, *rest = grads
+    return first, torch.cat([g.float().reshape(-1) for g in rest])
+
+
+def _train_core(name, args, plain, plain_backward, kernels, n):
+    """The ops of a train core: ``awseg::<name>`` (K7 or K9), whose gradient
+    is ``awseg::<name>_grad`` (K8 or K10, then the scatter; on the CPU
+    autograd through ``plain``), and ``awseg::<name>_backward`` (K8 or K10
+    alone). ``args`` is the forward's schema, its first ``n`` tensors
+    floating point; the forward saves its tensors, never its output."""
+    backward_args = args.replace('float rate', 'Tensor dy, float rate')
+    core = _op(name, f'({args}) -> Tensor', plain, kernels._launch_forward,
+               headkernels.DESIGNS)
+    _op(f'{name}_backward', f'({backward_args}) -> (Tensor, Tensor)',
+        _with_autograd(lambda *a: _packed(plain_backward(*a))),
+        kernels._launch_backward, headkernels.DESIGNS)
+
+    def grad_cuda(*a):
+        dpp, sums = kernels._launch_backward(*a)
+        return ht._launch_pp_adjoint(dpp), sums
+
+    def grad_cpu(*a):
+        *ins, dy, rate, r = a
+        return _packed(_plain_grad(plain, (*ins, rate, r), dy)[:n])
+
+    grad = _op(f'{name}_grad', f'({backward_args}) -> (Tensor, Tensor)',
+               _with_autograd(grad_cpu), grad_cuda, None)
+
+    def setup_context(ctx, inputs, output):
+        *tensors, ctx.rate, ctx.r = inputs
+        ctx.save_for_backward(*tensors)
+
+    def backward(ctx, dy):
+        ins = ctx.saved_tensors
+        dP, sums = grad(*ins, dy, ctx.rate, ctx.r)
+        return (dP, *(g.to(t.dtype) for g, t in
+                      zip(ht.split_sums(sums, ins[1:n]), ins[1:n])),
+                *(None,) * (len(ins) - n + 2))
+
+    core.register_autograd(backward, setup_context=setup_context)
+
+
+_train_core('seg_core_train', 'Tensor P, Tensor a1, Tensor c1, Tensor wp, '
+            'Tensor bp, Tensor seed, float rate, int r',
+            ht.seg_core_train_plain, ht.seg_core_train_backward_plain, ht, 5)
+_train_core('d1_core_train', 'Tensor P, Tensor a1, Tensor c1, Tensor seed, '
+            'float rate, int r', dk.d1_core_train_plain,
+            dk.d1_core_train_backward_plain, dk, 3)
+neighbor_pp_adjoint = _op(
+    'neighbor_pp_adjoint', '(Tensor dpp) -> Tensor',
+    lambda dpp: ht._neighbor_pp_adjoint(dpp).to(dpp.dtype),
+    ht._launch_pp_adjoint)

@@ -7,11 +7,11 @@ levels' maps flattened and concatenated, level l of ``shapes[2l]`` ×
 (x, y) in [0, 1], attn [B, Lq, M, L, P] f32 weights → [B, Lq, M·D] in
 value's dtype: each head's bilinear samples (``align_corners=False``, zeros
 outside the map) weighted and summed over the levels and points, in f32.
-On CUDA tensors it launches ``csrc/ms_deform_attn.cu``; on CPU tensors it
-runs :func:`ms_deform_attn_plain`, ``F.grid_sample`` per level as
-Deformable DETR's ``ms_deform_attn_core_pytorch`` writes it. A CUDA tensor
-never takes the plain version. It is the custom op ``awseg::ms_deform_attn``
-(``ops/library.py``) on either device; it takes no gradient.
+It is the custom op ``awseg::ms_deform_attn`` (``ops/library.py``). On
+CUDA tensors it launches ``csrc/ms_deform_attn.cu``, eval only; on CPU
+tensors it runs :func:`ms_deform_attn_plain`, ``F.grid_sample`` per level
+as Deformable DETR's ``ms_deform_attn_core_pytorch`` writes it. A CUDA
+tensor never takes the plain version.
 """
 
 from __future__ import annotations
@@ -89,23 +89,17 @@ def _launch(value, shapes, loc, attn):
     value, loc, attn = (_build.operand(t) for t in (value, loc, attn))
     out = value.new_empty((b, lq, m * d))
     hw = (ctypes.c_int * (2 * n_levels))(*(int(x) for x in shapes))
-    rc = _build.entry('ms_deform_attn', 'ms_deform_attn_launch',
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])(
-        _build.ptr(value), _build.ptr(loc), _build.ptr(attn),
-        _build.ptr(out), b, s, lq, m, d, n_levels, n_points, hw,
-        int(value.dtype == torch.bfloat16), _build.stream_ptr(value))
-    _build.check(_build.load('ms_deform_attn'), rc, 'ms_deform_attn')
-    ms_deform_attn.launches += 1
+    _build.launch('ms_deform_attn', 'ms_deform_attn', 'ms_deform_attn_launch',
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p, ctypes.c_int], value, loc, attn, out,
+                  b, s, lq, m, d, n_levels, n_points, hw,
+                  int(value.dtype == torch.bfloat16))
     return out
 
 
 def ms_deform_attn(value: torch.Tensor, shapes, loc: torch.Tensor,
                    attn: torch.Tensor) -> torch.Tensor:
-    """The sampling (module docstring): K11 on CUDA tensors, the plain
-    version on CPU tensors, through ``awseg::ms_deform_attn``."""
+    """The sampling (module docstring): the op ``awseg::ms_deform_attn``,
+    K11 on CUDA tensors, the plain version on CPU tensors."""
     return torch.ops.awseg.ms_deform_attn(value, [int(x) for x in shapes],
                                           loc, attn)
-
-
-ms_deform_attn.launches = 0

@@ -15,7 +15,9 @@ with ``torch.empty`` and never zero-filled. It serves
 ``splat_coverage_pallas`` does: up to 1 Mpx after its padding to its 40×256
 windows K4, above that K5.
 
-On a CPU tensor each runs :func:`splat_coverage_plain`, the chunked
+Each of the three is a custom op (``awseg::splat_coverage_batched``,
+``_windowed``, ``_tiled``; ``ops/library.py``): a CUDA tensor launches the
+kernel, a CPU tensor runs :func:`splat_coverage_plain`, the chunked
 distance test of the JAX package's ``_segment_coverage``.
 :func:`splat_coverage_tiles_plain` is the plain model of the kernel's tile walk
 (cull, then each tile's pixels against its kept drops), which the tests
@@ -131,27 +133,27 @@ def splat_coverage_tiles_plain(params: torch.Tensor, height: int, width: int,
     return out
 
 
-def _check_params(params, ndim, what):
-    if params.dtype != torch.float32 or params.ndim != ndim \
+def _launch(op, symbol, params, shape, *dims):
+    """``symbol`` of ``csrc/splat.cu`` on ``params`` (f32 [B, N, 8] for a
+    mask of ``shape`` [B, H, W], [N, 8] for [H, W]) into a new mask, which
+    the kernel writes whole; an empty mask launches nothing."""
+    if params.dtype != torch.float32 or params.ndim != len(shape) \
             or params.shape[-1] != 8:
-        shape = '[B, N, 8]' if ndim == 3 else '[N, 8]'
-        raise ValueError(f'{what}: params must be f32 {shape}, got '
+        want = '[B, N, 8]' if len(shape) == 3 else '[N, 8]'
+        raise ValueError(f'{op}: params must be f32 {want}, got '
                          f'{params.dtype} {tuple(params.shape)}')
-
-
-def _launch(wrapper, symbol, params, mask, *dims):
-    """``symbol`` of ``csrc/splat.cu`` on ``params`` into ``mask`` (the
-    kernel writes every pixel), counted on ``wrapper``; an empty mask
-    launches nothing."""
+    mask = torch.empty(shape, dtype=torch.float32, device=params.device)
     if mask.numel():
-        argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims)
-                    + [ctypes.c_void_p])
-        rc = _build.entry('splat', symbol, argtypes)(
-            _build.ptr(params), _build.ptr(mask), *dims,
-            _build.stream_ptr(params))
-        _build.check(_build.load('splat'), rc, wrapper.__name__)
-        wrapper.launches += 1
+        _build.launch(op, 'splat', symbol,
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(dims),
+                      _build.operand(params), mask, *dims)
     return mask
+
+
+def _launch_batched(params, height, width):
+    return _launch('splat_coverage_batched', 'splat_tiles_launch', params,
+                   (len(params), height, width), *params.shape[:2], height,
+                   width)
 
 
 def splat_coverage_batched(params: torch.Tensor, height: int,
@@ -159,17 +161,7 @@ def splat_coverage_batched(params: torch.Tensor, height: int,
     """K3: union coverage masks [B, H, W] (float 0/1) of the capsules in
     ``params`` [B, N, 8]. CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    if not params.is_cuda:
-        return splat_coverage_plain(params, height, width)
-    _check_params(params, 3, 'splat_coverage_batched')
-    b, n, _ = params.shape
-    mask = torch.empty((b, height, width), dtype=torch.float32,
-                       device=params.device)
-    return _launch(splat_coverage_batched, 'splat_tiles_launch',
-                   _build.operand(params), mask, b, n, height, width)
-
-
-splat_coverage_batched.launches = 0
+    return torch.ops.awseg.splat_coverage_batched(params, height, width)
 
 
 # ---------------------------------------------------------------------------
@@ -187,22 +179,28 @@ def uses_windowed(height: int, width: int) -> bool:
             <= _WINDOWED_MAX_PIXELS)
 
 
+def splat_coverage_image_plain(params: torch.Tensor, height: int,
+                               width: int) -> torch.Tensor:
+    """[N, 8] → [H, W]: :func:`splat_coverage_plain` of one image."""
+    return splat_coverage_plain(params[None], height, width)[0]
+
+
+def _launch_windowed(params, height, width):
+    return _launch('splat_coverage_windowed', 'splat_tiles_launch', params,
+                   (height, width), 1, len(params), height, width)
+
+
+def _launch_tiled(params, height, width):
+    return _launch('splat_coverage_tiled', 'splat_large_launch', params,
+                   (height, width), len(params), height, width)
+
+
 def splat_coverage_windowed(params: torch.Tensor, height: int,
                             width: int) -> torch.Tensor:
     """K4: the mask [H, W] (float 0/1) of one image's capsules [N, 8], K3's
     tile kernel at B = 1. CUDA tensors launch the kernel, CPU tensors take
     the plain version."""
-    if not params.is_cuda:
-        return splat_coverage_plain(params[None], height, width)[0]
-    _check_params(params, 2, 'splat_coverage_windowed')
-    mask = torch.empty((height, width), dtype=torch.float32,
-                       device=params.device)
-    return _launch(splat_coverage_windowed, 'splat_tiles_launch',
-                   _build.operand(params), mask, 1, params.shape[0], height,
-                   width)
-
-
-splat_coverage_windowed.launches = 0
+    return torch.ops.awseg.splat_coverage_windowed(params, height, width)
 
 
 def splat_coverage_tiled(params: torch.Tensor, height: int,
@@ -210,17 +208,7 @@ def splat_coverage_tiled(params: torch.Tensor, height: int,
     """K5: the mask [H, W] (float 0/1) of one image's capsules [N, 8], K3's
     tile kernel at B = 1 with ``LARGE_IMAGE_TILE``. CUDA tensors launch the
     kernel, CPU tensors take the plain version."""
-    if not params.is_cuda:
-        return splat_coverage_plain(params[None], height, width)[0]
-    _check_params(params, 2, 'splat_coverage_tiled')
-    mask = torch.empty((height, width), dtype=torch.float32,
-                       device=params.device)
-    return _launch(splat_coverage_tiled, 'splat_large_launch',
-                   _build.operand(params), mask, params.shape[0], height,
-                   width)
-
-
-splat_coverage_tiled.launches = 0
+    return torch.ops.awseg.splat_coverage_tiled(params, height, width)
 
 
 def splat_coverage(params: torch.Tensor, height: int,

@@ -48,11 +48,11 @@ Phases, each printing one JSON line:
    over one profiled step.
 4. parity: at batch 1 in f32, the corruption and the ensemble forward on
    the card (through the kernels) against the same on the CPU (where every
-   wrapper takes its plain version): uint8 images within one step with
+   op takes its plain version): uint8 images within one step with
    99.9% exact, logits within 2e-3.
 5. train kernels: K6 (the attention backward, through ``autograd.grad``
-   of the K1/K6 Function), K7 and K8 (the train seg head's core, K8 also
-   through the Function's backward), K9 and K10 (the train depth head's
+   of the op ``awseg::sr_attention``), K7 and K8 (the train seg head's
+   core, K8 also through the op's gradient), K9 and K10 (the train depth head's
    stage-1 core, K10 likewise) against their plain versions on the card at
    the train path's shapes and at ragged shapes off it (every r class, odd
    h/w), timed beside their plain versions, their bounds and, for K6, the
@@ -1012,7 +1012,7 @@ def phase_layers(step, batch, g):
 
 def phase_parity(dev):
     """Batch 1, f32: the corruption and the ensemble forward on the card
-    (through the kernels) against the same on the CPU, where every wrapper
+    (through the kernels) against the same on the CPU, where every op
     takes its plain version."""
     import torch
     from awsegbench_torch.data.pipeline import normalize_imagenet
@@ -1068,7 +1068,7 @@ def phase_train_kernels(dev):
     randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
     recs = {}
 
-    # K6 through autograd.grad of the K1/K6 Function, against plain
+    # K6 through autograd.grad of the op awseg::sr_attention, against plain
     # autograd; f32 at the JAX test's rtol 2e-4 / atol 2e-5, bf16 within
     # 6e-2 of each gradient's scale (the two round P, dS and dP to bf16 at
     # different points).
@@ -1164,9 +1164,9 @@ def phase_train_kernels(dev):
 
 def seg_train_kernels(dev, g):
     """K7 (both designs) and K8 (the train seg head's core, K8 also through
-    the Function's backward) against their plain versions at the path's
+    the op's gradient) against their plain versions at the path's
     P [b, 16, 32, 9, 256], r = 32, nc = 19, and at SEG_RAGGED; K7 as K2 is
-    held (SEG_TOLS). K8 through the Function's backward (dP incl. the plain
+    held (SEG_TOLS). K8 through the op's gradient (dP incl. the plain
     scatter, da1, dc1, dwp, dbp) against autograd through K7's plain
     version, which forms fine as both kernels do (the bf16 kron table in
     bf16): f32 at rtol 2e-3 of each gradient's scale, bf16 within 6e-2 of it
@@ -1282,7 +1282,7 @@ def seg_train_kernels(dev, g):
 def depth_kernels(dev, g):
     """K9 and K10 (the depth head's stage-1 core) against their plain
     versions: f32 within 1e-4 (K9) and rtol 2e-3 of each gradient's scale
-    (K10, also through the Function's backward), bf16 within 6e-2 of the
+    (K10, also through the op's gradient), bf16 within 6e-2 of the
     scale, as K7/K8; at the path's P [b, 16, 32, 9, 128], r = 32, and at a
     ragged shape off it."""
     import torch
@@ -1534,45 +1534,29 @@ SINGLE_COUNTERS = ('splat_coverage_windowed', 'splat_coverage_tiled')
 K5_SHAPES = ((1024, 2048), (2048, 1024))
 
 
-def counters():
-    """Every kernel wrapper's launch counter, by name."""
-    from awsegbench_torch.ops import attention, headkernels, splat
-    from awsegbench_torch.ops import depthkernels_train as dk
-    from awsegbench_torch.ops import headkernels_train as ht
-    from awsegbench_torch.ops import ms_deform_attn as msda
-    from awsegbench_torch.ops.bn_act import bn_act
-    return {fn.__name__: fn for fn in (
-        attention.sr_attention, headkernels.seg_core,
-        splat.splat_coverage_batched, splat.splat_coverage_windowed,
-        splat.splat_coverage_tiled, attention.sr_attention_backward,
-        ht.seg_core_train, ht.seg_core_train_backward, dk.d1_core_train,
-        dk.d1_core_train_backward, ht.neighbor_pp_adjoint,
-        msda.ms_deform_attn, bn_act)}
-
-
 def count_launches(run):
-    """Every launch counter (and per-design count) set to 0, ``run()``, the
-    counts read after it (all of them, by name; the per-design ones as
-    ``<name>.by_design``). Returns ``run()``'s result and the counts."""
+    """``run()`` after the launch table is cleared: its result and the
+    launches of every op of ``library.KERNEL_OPS`` by name, and of each of
+    the designs of those with two as ``<name>.by_design``."""
     import torch
-    fns = counters()
+    from awsegbench_torch import _build
+    from awsegbench_torch.ops.library import KERNEL_OPS
     torch.cuda.synchronize()
-    for fn in fns.values():
-        fn.launches = 0
-        by = getattr(fn, 'launches_by_design', {})
-        by.update(dict.fromkeys(by, 0))
+    _build.launches.clear()
+    _build.design_launches.clear()
     out = run()
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in fns.items()}
-    launches.update({f'{name}.by_design': dict(fn.launches_by_design)
-                     for name, fn in fns.items()
-                     if hasattr(fn, 'launches_by_design')})
-    return out, launches
+    counts = {op: _build.launches[op] for op in KERNEL_OPS}
+    for op, designs in KERNEL_OPS.items():
+        if designs:
+            counts[f'{op}.by_design'] = {
+                d: _build.design_launches[op, d] for d in designs}
+    return out, counts
 
 
 def run_counted(run, needed, what):
     """:func:`count_launches` of ``run``; raises if a kernel in ``needed``
-    never launched, or if a needed wrapper with two designs (K1, K2,
+    never launched, or if a needed op with two designs (K1, K2,
     K6–K10) launched its bf16 design ('mma_bf16') no time or its f32
     design at all: the paths run in bf16."""
     out, launches = count_launches(run)

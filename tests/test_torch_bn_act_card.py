@@ -26,6 +26,7 @@ This file imports no JAX.
 import pytest
 import torch
 
+from awsegbench_torch import _build
 from awsegbench_torch.ops import bn_act as bna
 
 F32_RTOL = 1e-6
@@ -144,10 +145,10 @@ def test_k12_at_the_cells_shapes(card, cell):
 
 def _count(run):
     torch.cuda.synchronize()
-    bna.bn_act.launches = 0
+    _build.launches.clear()
     run()
     torch.cuda.synchronize()
-    return bna.bn_act.launches
+    return _build.launches['bn_act']
 
 
 @pytest.mark.card

@@ -38,13 +38,11 @@ from awsegbench.eval.evaluator import Evaluator as JEvaluator
 from awsegbench.models import ensemble as jensemble
 from awsegbench.train.checkpoints import CheckpointManager as JManager
 from awsegbench.train.checkpoints import load_checkpoint as jload
+from awsegbench_torch import _build
 from awsegbench_torch.cli import evaluate as eval_cli
 from awsegbench_torch.cli import train as train_cli
 from awsegbench_torch.convert import flax_to_torch
 from awsegbench_torch.data import dataset as pdataset
-from awsegbench_torch.ops import attention, headkernels, splat
-from awsegbench_torch.ops import depthkernels_train as dk
-from awsegbench_torch.ops import headkernels_train as ht
 from awsegbench_torch.train.checkpoints import CheckpointManager
 from test_cli import _write_tiny_config
 from test_torch_models import random_variables
@@ -54,11 +52,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = (attention.sr_attention, attention.sr_attention_backward,
-           headkernels.seg_core, splat.splat_coverage_batched,
-           splat.splat_coverage_windowed, splat.splat_coverage_tiled,
-           ht.seg_core_train, ht.seg_core_train_backward,
-           ht.neighbor_pp_adjoint, dk.d1_core_train, dk.d1_core_train_backward)
 # The JAX CLIs' result keys: training_results.json, a history entry of
 # each kind, and the Evaluator's schema for three weathers without AUROC
 # (a single SegFormer has no second member)
@@ -89,8 +82,7 @@ def test_train_then_evaluate_cli(tmp_path, monkeypatch):
     cfg = tmp_path / 'cfg.yaml'
     _write_tiny_config(cfg, tmp_path)
     out = tmp_path / 'run'
-    for fn in KERNELS:
-        fn.launches = 0
+    _build.launches.clear()
     trainer = train_cli.main(['--config', str(cfg), '--output-dir', str(out),
                               '--device', 'cpu'])
     ckpt = out / 'ckpt' / 'latest'
@@ -117,7 +109,7 @@ def test_train_then_evaluate_cli(tmp_path, monkeypatch):
     assert all(np.isfinite(v) for v in written.values())
     assert '| miou_clean |' in (tmp_path / 'eval'
                                 / 'evaluation_report.md').read_text()
-    assert all(fn.launches == 0 for fn in KERNELS)
+    assert not _build.launches
 
 
 def _run(args, cwd, env=None):

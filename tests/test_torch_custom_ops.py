@@ -1,13 +1,19 @@
-"""The eval kernels as ``torch.library`` custom ops (``ops/library.py``), on
-the CPU.
+"""Every hand-written kernel as a ``torch.library`` custom op
+(``ops/library.py``), on the CPU.
 
 * ``torch.library.opcheck`` on ``awseg::sr_attention`` (K1) and
   ``awseg::seg_core`` (K2) at ragged shapes (``awseg::bn_act``, K12, in
   ``tests/test_torch_bn_act.py``), f32 and bf16: schema, fake
   implementation and the traced (dynamic-shape) dispatch all agree with
-  the CPU kernel.
+  the CPU kernel. On the ops with no fake implementation (K3–K10, the
+  scatter and the train cores' gradients), the checks that need none: the
+  schema and the autograd registration.
 * Each op has a CPU and a CUDA kernel and nothing else: no default
   implementation that would run plain code on another device.
+* Each op's CPU route equals its plain version bit for bit in f32 and
+  bf16, and so does its gradient the plain version's autograd (K7, K9);
+  K6 equals autograd through K1's plain version, K8 and K10 their plain
+  versions.
 * The exported serving graph of the ensemble holds exactly 8
   ``awseg.sr_attention`` nodes (one per MiT block) and 1
   ``awseg.seg_core``, 66 ``awseg.bn_act`` (every BN of both members),
@@ -17,8 +23,10 @@ the CPU.
 * ``_device.const`` after an export in the same process serves real
   tables: ``normalize_imagenet``, an upconv and the seg head's phase passes
   equal a fresh process's values, and the cache holds no FakeTensor.
-* Without a gradient the wrappers call the ops, and on the CPU that equals
-  the plain versions bit for bit; with one they keep their autograd paths.
+* The public functions call the ops with a gradient or without one; on
+  the CPU that equals the plain versions bit for bit, and the gradients
+  (K1's from K6's op, K2's from the eval kernels' shared rule) equal the
+  plain versions' autograd bit for bit.
 """
 
 import subprocess
@@ -33,7 +41,9 @@ import torch
 from awsegbench_torch import _device
 from awsegbench_torch.data.pipeline import normalize_imagenet
 from awsegbench_torch.models.ensemble import EnsembleModel
-from awsegbench_torch.ops import attention, headkernels
+from awsegbench_torch.ops import attention, headkernels, splat
+from awsegbench_torch.ops import depthkernels_train as dk
+from awsegbench_torch.ops import headkernels_train as ht
 from awsegbench_torch.ops.upconv import upsample_conv3x3
 from awsegbench_torch.serving import build_serving_fn
 
@@ -42,7 +52,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ROOT = Path(__file__).resolve().parents[1]
-OPS = ('awseg::sr_attention', 'awseg::seg_core', 'awseg::bn_act')
+# the ops with a fake implementation (K1, K2, K12, K11), then those without
+OPS = ('awseg::sr_attention', 'awseg::seg_core', 'awseg::bn_act',
+       'awseg::ms_deform_attn', 'awseg::splat_coverage_batched',
+       'awseg::splat_coverage_windowed', 'awseg::splat_coverage_tiled',
+       'awseg::sr_attention_backward', 'awseg::seg_core_train',
+       'awseg::seg_core_train_backward', 'awseg::seg_core_train_grad',
+       'awseg::d1_core_train', 'awseg::d1_core_train_backward',
+       'awseg::d1_core_train_grad', 'awseg::neighbor_pp_adjoint')
 
 
 def _rand(shape, dtype, seed):
@@ -172,7 +189,7 @@ def test_no_grad_branch_is_the_op_and_equals_plain():
         torch.testing.assert_close(headkernels.seg_core(*core, 4),
                                    headkernels.seg_core_plain(*core, 4),
                                    rtol=0, atol=0)
-    # traced without a gradient, the wrappers record the ops
+    # traced without a gradient, the public functions record the ops
     gm = torch.fx.experimental.proxy_tensor.make_fx(
         lambda q, k, v, *c: (attention.sr_attention(q, k, v, 0.17),
                              headkernels.seg_core(*c, 4)))(q, k, v, *core)
@@ -183,14 +200,136 @@ def test_no_grad_branch_is_the_op_and_equals_plain():
 
 
 def test_grad_branch_keeps_autograd():
+    """With a gradient the public functions call the same ops, and the
+    gradients equal the plain versions' autograd bit for bit: K1's through
+    the op ``awseg::sr_attention_backward``, K2's through the eval
+    kernels' shared rule."""
     q, k, v = (t.requires_grad_() for t in
                _attention_inputs(2, 9, 4, 32, torch.float32))
-    attention.sr_attention(q, k, v, 0.2).sum().backward()
+    out = attention.sr_attention(q, k, v, 0.2)
+    assert 'awseg_sr_attention' in type(out.grad_fn).__name__
+    out.sum().backward()
     dq = q.grad.clone()
     q.grad = None
     attention.sr_attention_plain(q, k, v, 0.2).sum().backward()
     torch.testing.assert_close(dq, q.grad, rtol=0, atol=0)
     P, a1, c1, wp, bp = _seg_core_inputs(1, 2, 2, 16, 3, torch.float32)
     P.requires_grad_()
-    headkernels.seg_core(P, a1, c1, wp, bp, 4).sum().backward()
-    assert P.grad is not None and P.grad.abs().sum() > 0
+    out = headkernels.seg_core(P, a1, c1, wp, bp, 4)
+    assert 'awseg_seg_core' in type(out.grad_fn).__name__
+    out.sum().backward()
+    dP = P.grad.clone()
+    P.grad = None
+    headkernels.seg_core_plain(P, a1, c1, wp, bp, 4).sum().backward()
+    assert dP.abs().sum() > 0
+    torch.testing.assert_close(dP, P.grad, rtol=0, atol=0)
+
+
+# ------------------------------------------- the ops added to the table
+
+def _autograd(fn, args, grad, wrt):
+    """``fn(*args)`` and plain ``torch.autograd.grad`` of it for ``grad``
+    with respect to ``args[i]``, i in ``wrt``."""
+    leaves = [a.detach().requires_grad_() if i in wrt else a
+              for i, a in enumerate(args)]
+    out = fn(*leaves)
+    return [out, *torch.autograd.grad(out, [leaves[i] for i in wrt], grad)]
+
+
+def _train_core_inputs(dtype, nc=None):
+    """Tiny K7 (with ``nc``) or K9 operands: P [1, 2, 3, 9, 16], a1 of both
+    signs, a seed, rate 0.1, r 4."""
+    P = _rand((1, 2, 3, 9, 16), dtype, 0)
+    a1, c1 = _rand((16,), torch.float32, 1), _rand((16,), torch.float32, 2)
+    seed = torch.tensor([5], dtype=torch.int32)
+    if nc is None:
+        return P, a1, c1, seed, 0.1, 4
+    return (P, a1, c1, _rand((16, nc), dtype, 3) / 4,
+            _rand((nc,), torch.float32, 4), seed, 0.1, 4)
+
+
+def _op_case(name, dtype):
+    """(what the public function gives on the CPU, what it must equal)."""
+    if name in ('seg_core_train', 'd1_core_train'):
+        args = _train_core_inputs(dtype, 5 if name == 'seg_core_train'
+                                  else None)
+        fn = getattr(ht if name == 'seg_core_train' else dk, name)
+        plain = getattr(ht if name == 'seg_core_train' else dk,
+                        f'{name}_plain')
+        wrt = range(5 if name == 'seg_core_train' else 3)
+        dy = _rand(plain(*args).shape, dtype, 9)
+        return _autograd(fn, args, dy, wrt), _autograd(plain, args, dy, wrt)
+    if name == 'sr_attention_backward':
+        q, k, v = _attention_inputs(3, 37, 5, 32, dtype)
+        dout = _rand((3, 37, 32), dtype, 7)
+        return (attention.sr_attention_backward(q, k, v, dout, 0.3),
+                _autograd(attention.sr_attention_plain, (q, k, v, 0.3), dout,
+                          range(3))[1:])
+    if name == 'seg_core_train_backward':
+        args = _train_core_inputs(dtype, 5)
+        dy = _rand((1, 8, 12, 5), dtype, 9)
+        return (ht.seg_core_train_backward(*args[:6], dy, *args[6:]),
+                ht.seg_core_train_backward_plain(*args[:6], dy, *args[6:]))
+    if name == 'd1_core_train_backward':
+        args = _train_core_inputs(dtype)
+        dd1 = _rand((1, 8, 12, 16), dtype, 9)
+        return (dk.d1_core_train_backward(*args[:4], dd1, *args[4:]),
+                dk.d1_core_train_backward_plain(*args[:4], dd1, *args[4:]))
+    if name == 'neighbor_pp_adjoint':
+        dpp = _rand((1, 3, 2, 81, 8), dtype, 0)
+        return ([ht.neighbor_pp_adjoint(dpp)],
+                [ht._neighbor_pp_adjoint(dpp).to(dtype)])
+    # the splat masks take f32 drops at any dtype of the image
+    params = _rand((2, 6, 8), torch.float32, 0).abs() * 12
+    params[..., 5] = 1.0
+    if name == 'splat_coverage_batched':
+        return ([splat.splat_coverage_batched(params, 17, 30)],
+                [splat.splat_coverage_plain(params, 17, 30)])
+    return ([getattr(splat, name)(params[0], 17, 30)],
+            [splat.splat_coverage_plain(params[:1], 17, 30)[0]])
+
+
+NEW_OPS = ('sr_attention_backward', 'seg_core_train',
+           'seg_core_train_backward', 'd1_core_train',
+           'd1_core_train_backward', 'neighbor_pp_adjoint',
+           'splat_coverage_batched', 'splat_coverage_windowed',
+           'splat_coverage_tiled')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', NEW_OPS)
+def test_op_and_its_gradient_equal_the_plain_version(name, dtype):
+    got, want = _op_case(name, dtype)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _op_args(name):
+    """Arguments for ``awseg::<name>`` at tiny shapes, floats requiring a
+    gradient where the op has one."""
+    if name.startswith('splat'):
+        params = _rand((2, 6, 8), torch.float32, 0).abs() * 12
+        return (params if name.endswith('batched') else params[0], 9, 14)
+    if name == 'sr_attention_backward':
+        return (*_attention_inputs(2, 9, 4, 32, torch.float32),
+                _rand((2, 9, 32), torch.float32, 5), 0.3)
+    if name == 'neighbor_pp_adjoint':
+        return (_rand((1, 2, 2, 81, 8), torch.float32, 0),)
+    seg = name.startswith('seg')
+    args = list(_train_core_inputs(torch.float32, 5 if seg else None))
+    if name.endswith('_train'):
+        n = 5 if seg else 3
+        return (*(a.requires_grad_() for a in args[:n]), *args[n:])
+    grad = _rand((1, 8, 12, 5 if seg else 16), torch.float32, 9)
+    n = 6 if seg else 4
+    return (*args[:n], grad, *args[n:])
+
+
+@pytest.mark.parametrize('name', [op.split('::')[1] for op in OPS[4:]])
+def test_opcheck_ops_without_a_fake(name):
+    torch.library.opcheck(getattr(torch.ops.awseg, name).default,
+                          _op_args(name),
+                          test_utils=('test_schema',
+                                      'test_autograd_registration'))

@@ -17,6 +17,7 @@ import torch
 from awsegbench.data.pipeline import prepare_batch as jprepare_batch
 from awsegbench.metrics import iou as jiou
 from awsegbench.models import ensemble as jensemble
+from awsegbench_torch import _build
 from awsegbench_torch.convert import flax_to_torch
 from awsegbench_torch.eval.step import EvalStep
 from awsegbench_torch.metrics import iou
@@ -86,9 +87,9 @@ def test_eval_step_depth_sum_matches_jax(step_pair):
 
 
 def test_eval_step_on_cpu_launches_no_kernel(step_pair):
-    assert attention.sr_attention.launches == 0
-    assert headkernels.seg_core.launches == 0
-    assert splat.splat_coverage_batched.launches == 0
+    for fn in (attention.sr_attention, headkernels.seg_core,
+               splat.splat_coverage_batched):
+        assert _build.launches[fn.__name__] == 0, fn.__name__
 
 
 def test_eval_step_accumulates_and_needs_a_card_unless_cpu(step_pair):

@@ -30,6 +30,7 @@ from awsegbench.core.mesh import create_mesh
 from awsegbench.core.prng import RngStreams, per_sample_keys
 from awsegbench.eval import evaluator as jevaluator
 from awsegbench.models import ensemble as jensemble
+from awsegbench_torch import _build
 from awsegbench_torch.convert import flax_to_torch
 from awsegbench_torch.eval import evaluator
 from awsegbench_torch.models.ensemble import EnsembleModel
@@ -162,7 +163,7 @@ def test_evaluator_confusion_matrices_match_jax(sweeps):
 def test_evaluator_on_cpu_launches_no_kernel(sweeps):
     for fn in (attention.sr_attention, headkernels.seg_core,
                splat.splat_coverage_batched):
-        assert fn.launches == 0, fn.__name__
+        assert _build.launches[fn.__name__] == 0, fn.__name__
 
 
 # ------------------------------------------- the sweep on a stand-in model

@@ -26,6 +26,7 @@ from awsegbench.ops import resize as jresize
 from awsegbench.ops import splat as jsplat
 from awsegbench.ops import upconv as jup
 from awsegbench.weather import corruption as jcorr
+from awsegbench_torch import _build
 from awsegbench_torch.ops import attention, filters, headkernels, \
     headkernels_train, resize, splat, upconv
 
@@ -254,17 +255,16 @@ def test_splat_mask_bit_exact():
 
 
 def test_cpu_calls_do_not_count_launches():
-    before = (attention.sr_attention.launches, headkernels.seg_core.launches,
-              splat.splat_coverage_batched.launches,
-              headkernels_train.seg_core_train.launches)
+    before = (dict(_build.launches), dict(_build.design_launches))
     attention.sr_attention(torch.zeros(1, 4, 32), torch.zeros(1, 2, 32),
                            torch.zeros(1, 2, 32), 1.0)
     attention.sr_attention_backward(
         *(torch.zeros(1, r, 32, dtype=torch.bfloat16) for r in (4, 2, 2, 4)),
         1.0)
     for fn in (attention.sr_attention, attention.sr_attention_backward):
-        assert fn.launches == 0
-        assert fn.launches_by_design == dict.fromkeys(attention.DESIGNS, 0)
+        assert _build.launches[fn.__name__] == 0
+        assert not any(_build.design_launches[fn.__name__, d]
+                       for d in attention.DESIGNS)
     headkernels.seg_core(torch.zeros(1, 1, 1, 9, 16), torch.ones(16),
                          torch.zeros(16), torch.zeros(16, 19), torch.zeros(19),
                          4)
@@ -273,12 +273,8 @@ def test_cpu_calls_do_not_count_launches():
         torch.zeros(16), torch.zeros(16, 5), torch.zeros(5),
         torch.tensor(3, dtype=torch.int32), 0.1, 4)
     splat.splat_coverage_batched(torch.zeros(1, 2, 8), 8, 8)
-    assert before == (0, 0, 0, 0)
-    assert (attention.sr_attention.launches, headkernels.seg_core.launches,
-            splat.splat_coverage_batched.launches,
-            headkernels_train.seg_core_train.launches) == (0, 0, 0, 0)
-    for fn in (headkernels.seg_core, headkernels_train.seg_core_train):
-        assert fn.launches_by_design == dict.fromkeys(headkernels.DESIGNS, 0)
+    assert before == ({}, {})
+    assert not _build.launches and not _build.design_launches
 
 
 def _imports(path):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from awsegbench_torch import _build
 from awsegbench_torch.ops import depthkernels_train as dk
 from awsegbench_torch.ops import headkernels, headkernels_train as ht
 
@@ -29,7 +30,7 @@ def test_cpu_route_is_the_plain_adjoint(shape, dtype):
     want = ht._neighbor_pp_adjoint(dpp).to(dtype)
     assert got.dtype == dtype and got.shape == (*shape[:3], 9, shape[4])
     assert torch.equal(got, want)
-    assert ht.neighbor_pp_adjoint.launches == 0
+    assert _build.launches['neighbor_pp_adjoint'] == 0
 
 
 @pytest.mark.parametrize('shape', SHAPES)
@@ -51,7 +52,7 @@ def test_pp_adjoint_wrapper_states_its_limits():
         ht._launch_pp_adjoint(torch.zeros(1, 2, 2, 80, 8))
     with pytest.raises(ValueError, match=r'\[B, h, w, 81, C\]'):
         ht._launch_pp_adjoint(torch.zeros(2, 81, 8))
-    assert ht.neighbor_pp_adjoint.launches == 0
+    assert _build.launches['neighbor_pp_adjoint'] == 0
 
 
 def _seg_args(nc, c=16, dtype=torch.bfloat16):
@@ -69,8 +70,8 @@ def test_k8_wrapper_states_its_limits(nc, r, match):
     dy = torch.zeros(1, 2 * max(r, 1), 2 * max(r, 1), nc, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=match):
         ht._launch_backward(*args, dy, 0.1, r)
-    assert ht.seg_core_train_backward.launches == 0
-    assert sum(ht.seg_core_train_backward.launches_by_design.values()) == 0
+    assert _build.launches['seg_core_train_backward'] == 0
+    assert not _build.design_launches
 
 
 def test_k8_wrapper_checks_dy():
@@ -91,7 +92,8 @@ def test_bf16_depth_kernels_take_c_multiple_of_16(launch):
             dk._launch_backward(P, a, a, seed,
                                 torch.zeros(1, 8, 8, 24, dtype=torch.bfloat16),
                                 0.1, 4)
-    assert dk.d1_core_train.launches == dk.d1_core_train_backward.launches == 0
+    assert _build.launches['d1_core_train'] == 0
+    assert _build.launches['d1_core_train_backward'] == 0
 
 
 @pytest.mark.parametrize('r', [2, 3, 4, 5, 8, 17, 32])

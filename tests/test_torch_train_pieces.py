@@ -26,6 +26,7 @@ from awsegbench.losses import fog_density as jloss
 from awsegbench.models.heads import BatchNormParams
 from awsegbench.train import optim as joptim
 from awsegbench.train.trainer import fog_density_from_weather as jfog
+from awsegbench_torch import _build
 from awsegbench_torch.convert import flax_to_torch, torch_to_flax
 from awsegbench_torch.core.precision import get_policy
 from awsegbench_torch.data.pipeline import apply_augment, draw_augment
@@ -414,7 +415,7 @@ def test_cpu_train_step_launches_no_kernel():
                headkernels.seg_core, headkernels_train.seg_core_train,
                headkernels_train.seg_core_train_backward,
                splat.splat_coverage_batched):
-        assert fn.launches == 0, fn.__name__
+        assert _build.launches[fn.__name__] == 0, fn.__name__
 
 
 def test_tables_made_in_inference_mode_serve_autograd():

@@ -45,6 +45,7 @@ from awsegbench.losses.fog_density import FogDensityAwareLoss as JLoss
 from awsegbench.models import ensemble as jensemble
 from awsegbench.ops import headkernels_train as jht
 from awsegbench.train.trainer import fog_density_from_weather as jfog
+from awsegbench_torch import _build
 from awsegbench_torch.convert import flax_to_torch, torch_to_flax
 from awsegbench_torch.core.precision import Policy
 from awsegbench_torch.data.pipeline import prepare_batch
@@ -252,4 +253,4 @@ def test_train_step_on_cpu_launches_no_kernel(step_pair):
                headkernels.seg_core, headkernels_train.seg_core_train,
                headkernels_train.seg_core_train_backward,
                splat.splat_coverage_batched):
-        assert fn.launches == 0, fn.__name__
+        assert _build.launches[fn.__name__] == 0, fn.__name__

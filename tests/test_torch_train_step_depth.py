@@ -44,6 +44,7 @@ from awsegbench.ops import headkernels_train as jht
 from awsegbench.train.trainer import fog_density_from_weather as jfog
 from awsegbench.weather import corruption as jcorr
 from awsegbench.weather.depth import estimate_depth_batch as jdepth
+from awsegbench_torch import _build
 from awsegbench_torch.convert import flax_to_torch, torch_to_flax
 from awsegbench_torch.core.precision import Policy
 from awsegbench_torch.data.pipeline import prepare_batch
@@ -247,4 +248,4 @@ def test_depth_train_step_on_cpu_launches_no_kernel(step_pair):
     for fn in (depthkernels_train.d1_core_train,
                depthkernels_train.d1_core_train_backward,
                splat.splat_coverage_batched):
-        assert fn.launches == 0, fn.__name__
+        assert _build.launches[fn.__name__] == 0, fn.__name__

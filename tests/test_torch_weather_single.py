@@ -20,6 +20,7 @@ import torch
 
 from awsegbench.ops import splat as jsplat
 from awsegbench.weather import corruption as jcorr
+from awsegbench_torch import _build
 from awsegbench_torch.ops import splat
 from awsegbench_torch.weather import corruption
 from test_splat import _random_capsules
@@ -99,7 +100,7 @@ def test_single_image_path_on_cpu_launches_no_kernel():
         assert out.shape == img.shape and (out != img).any()
     for fn in (splat.splat_coverage_windowed, splat.splat_coverage_tiled,
                splat.splat_coverage_batched):
-        assert fn.launches == 0, fn.__name__
+        assert _build.launches[fn.__name__] == 0, fn.__name__
 
 
 # ---------------------------------------------------------------- the API
