@@ -17,11 +17,15 @@ Parity notes:
   ``num_batches_tracked``.
 * BN train mode is Flax ``nn.BatchNorm``'s: f32 batch statistics by the
   fast variance ``E[x²] − E[x]²`` (clipped at 0), the normalisation in f32
-  and the result in the promoted dtype, and the running statistics
-  updated as ``0.9·old + 0.1·batch`` with the *biased* variance, where
-  ``old`` is taken in the parameters' dtype (the compute dtype under a bf16
-  policy, as the JAX step casts ``batch_stats``) and the result kept in
-  f32. Torch's ``F.batch_norm`` would update with the unbiased variance.
+  and the result in the promoted dtype; with the residual add and the ReLU
+  that follow it, it is one ``ops.bn_train`` call with a registered
+  gradient: K13 and K14 on the card (f32 arithmetic, rounded once), the
+  composition op for op and the gradient's formula on the CPU. The
+  running statistics are updated as ``0.9·old + 0.1·batch`` with the
+  *biased* variance, where ``old`` is taken in the parameters' dtype (the
+  compute dtype under a bf16 policy, as the JAX step casts
+  ``batch_stats``) and the result kept in f32. Torch's ``F.batch_norm``
+  would update with the unbiased variance.
 * Padding is torch-style symmetric, ``d·(k−1)/2`` per side, for every
   ``ConvBNReLU`` (``heads.py:176-186`` in the JAX package pads that way on
   purpose: Flax ``'SAME'`` at stride 2 pads (0, 1) on even inputs). Stride-1
@@ -48,12 +52,12 @@ from torch import nn
 
 from .._device import const
 from ..ops.bn_act import bn_act
+from ..ops.bn_train import MEAN, VAR, bn_train
 from ..ops.depthkernels_train import depth_stage1_fused_train
 from ..ops.headkernels import seg_head_fused
 from ..ops.headkernels_train import dropout_keep_mask, seg_head_fused_train
 from ..ops.upconv import upsample_conv3x3
-from ..parallel.collectives import (active_mesh, first_row, global_rows,
-                                    sync_sum)
+from ..parallel.collectives import active_mesh, first_row
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -89,28 +93,13 @@ class BatchNorm(nn.Module):
                 residual: torch.Tensor | None = None,
                 relu: bool = False) -> torch.Tensor:
         """BN of x, then ``+ residual`` where given, then the ReLU where
-        ``relu`` is set. In eval mode all of it is one ``bn_act`` (K12 on
-        the card)."""
-        shape = (1, -1) + (1,) * (x.ndim - 2)
+        ``relu`` is set: one ``bn_train`` in train mode (K13, and K14 under
+        autograd, on the card), one ``bn_act`` in eval mode (K12)."""
         if self.training:
-            dims = (0,) + tuple(range(2, x.ndim))
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            if active_mesh() is None:
-                mean = xf.mean(dims)
-                sq = (xf * xf).mean(dims)
-            else:   # the global batch's statistics, over every rank's rows
-                n = global_rows(xf.shape[0]) * (xf.numel() // xf.shape[0]
-                                                // xf.shape[1])
-                mean = sync_sum(xf.sum(dims)) / n
-                sq = sync_sum((xf * xf).sum(dims)) / n
-            var = torch.clamp(sq - mean * mean, min=0.0)
-            self.set_stats(mean, var)
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-            y = y.to(torch.result_type(x, self.weight))
-            if residual is not None:
-                y = y + residual
-            return F.relu(y) if relu else y
+            y, stats = bn_train(x, self.weight, self.bias, self.eps, residual,
+                                relu)
+            self.set_stats(stats[MEAN], stats[VAR])
+            return y
         return bn_act(x, self.running_mean, self.running_var, self.weight,
                       self.bias, self.eps, residual, relu)
 

@@ -6,10 +6,12 @@ public functions of ``ops/`` call the ops, so a traced graph holds them.
 Gradients (``register_autograd``): K1's is the op
 ``awseg::sr_attention_backward`` (K6), K7's and K9's ``<name>_grad`` (K8
 or K10, then the scatter); each saves what its kernel recomputes from, and
-on the CPU is autograd through the plain forward. The eval kernels (K2,
-K11, K12) take the plain version's autograd on the CPU and raise on the
-card. The eval ops (K1, K2, K11, K12) have fakes that compute the output's
-shape and dtype with no guard on the batch, so a symbolic batch survives
+on the CPU is autograd through the plain forward. Train-mode BN's
+(``awseg::bn_train``, K13) is ``awseg::bn_train_backward`` (K14), the
+gradient's formula on the CPU. The eval kernels (K2, K11, K12) take the
+plain version's autograd on the CPU and raise on the card. The eval ops
+(K1, K2, K11, K12) and K13/K14 have fakes that compute the output's shape
+and dtype with no guard on the batch, so a symbolic batch survives
 ``torch.export``; a serving artifact needs this module imported before
 ``torch.export.load``.
 """
@@ -20,7 +22,9 @@ import functools
 
 import torch
 
-from . import attention, bn_act as bna, depthkernels_train as dk, splat
+from ..parallel.collectives import active_mesh, data_parallel
+from . import attention, bn_act as bna, bn_train as bnt
+from . import depthkernels_train as dk, splat
 from . import headkernels, headkernels_train as ht, ms_deform_attn as msda
 
 # The launch table's keys (``_build.launches``): each op that launches a
@@ -193,6 +197,60 @@ splat_coverage_windowed = _op('splat_coverage_windowed', _SPLAT,
 splat_coverage_tiled = _op('splat_coverage_tiled', _SPLAT,
                            splat.splat_coverage_image_plain,
                            splat._launch_tiled)
+
+
+# --- train: K13 and its gradient, K14
+
+bn_train = _op(
+    'bn_train', '(Tensor x, Tensor weight, Tensor bias, float eps, '
+    'Tensor? residual=None, bool relu=False) -> (Tensor, Tensor)',
+    bnt.bn_train_plain, bnt._launch_forward)
+bn_train_backward = _op(
+    'bn_train_backward', '(Tensor dy, Tensor x, Tensor? y, Tensor stats, '
+    'Tensor weight, bool want_dres) -> (Tensor, Tensor, Tensor)',
+    bnt.bn_train_backward_plain, bnt._launch_backward)
+
+
+@bn_train.register_fake
+def _bn_train_fake(x, weight, bias, eps, residual=None, relu=False):
+    dtype = torch.promote_types(x.dtype, weight.dtype)
+    if residual is not None:
+        dtype = torch.promote_types(dtype, residual.dtype)
+    return (torch.empty_like(x, dtype=dtype),
+            x.new_empty((4, x.shape[1]),
+                        dtype=torch.promote_types(x.dtype, torch.float32)))
+
+
+@bn_train_backward.register_fake
+def _bn_train_backward_fake(dy, x, y, stats, weight, want_dres):
+    return (torch.empty_like(x),
+            torch.empty_like(dy) if want_dres else dy.new_empty(0),
+            weight.new_empty((2, x.shape[1])))
+
+
+def _bn_train_setup(ctx, inputs, output):
+    x, weight, _, _, residual, ctx.relu = inputs
+    y, stats = output
+    ctx.residual = residual is not None
+    # the backward runs on autograd's thread, outside the caller's mesh
+    ctx.mesh = active_mesh()
+    ctx.mark_non_differentiable(stats)
+    ctx.save_for_backward(x, y if ctx.relu else None, stats, weight)
+
+
+def _bn_train_grad(ctx, dy, _):
+    x, y, stats, weight = ctx.saved_tensors
+    with data_parallel(ctx.mesh):
+        dx, dres, dwb = bn_train_backward(dy, x, y, stats, weight,
+                                          ctx.relu and ctx.residual)
+    if not ctx.residual:
+        dres = None
+    elif not ctx.relu:
+        dres = dy
+    return dx, dwb[0], dwb[1], None, dres, None
+
+
+bn_train.register_autograd(_bn_train_grad, setup_context=_bn_train_setup)
 
 
 # --- train: K7/K8 and K9/K10, with the scatter

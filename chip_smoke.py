@@ -64,13 +64,19 @@ Phases, each printing one JSON line:
    ≥ 99.9% bit-equal to its plain version, the rest within one bf16 step.
    The bf16 backwards take the forwards' ReLU decisions, counted exactly
    (``relu_decisions``), and the scatter of dpp back to P
-   (``neighbor_pp_adjoint``) is bit-equal to its plain version.
+   (``neighbor_pp_adjoint``) is bit-equal to its plain version. K13 and
+   K14 (train BN with its residual add and ReLU, and its gradient) against
+   their plain versions in f64 at ragged shapes in both layouts and
+   dtypes, and timed in bf16 at the ResNet-50's stem and the SegFormer
+   depth head's BN at full resolution beside their bound, their plain
+   versions and the library's train ``F.batch_norm`` then ``relu_`` (its
+   backward by autograd; a yardstick only).
 6. train path: ``TrainStep`` on bench.py's train configuration, the
    faithful ensemble with depth heads, at 512×1024, bf16 compute, batch 8,
    mixed weather 0–4, clip 1.0 and AdamW(1e-3, decay 1e-4): 2 warm-up and
-   5 timed steps; images/s, peak memory, the launches of K1, K3 and K6–K10
-   in that run (each must be > 0, K1's and K6's through their tensor-core
-   design); the losses (the depth loss included)
+   5 timed steps; images/s, peak memory, the launches of K1, K3, K6–K10,
+   K13 and K14 in that run (each must be > 0, K1's and K6's through their
+   tensor-core design, K13 and K14 exactly 65 a step); the losses (the depth loss included)
    must be finite, every parameter must move but those listed in
    ``STILL_BY_CONSTRUCTION`` with their reasons, and every BN running stat
    must move. Then each layer's forward+backward timed alone and device
@@ -189,8 +195,8 @@ Phases, each printing one JSON line:
     eval forward at 512×1024, batch 8, against one process (f32 within
     rtol 2e-4 and atol 2e-5, argmax equal; bf16 against bf16's own error;
     counted: K1 8, K2 1, K12 66 a rank); ``TrainStep`` on the train cell in bf16
-    (batch 8, counted: K1 8, K3 1, K6 8, K7–K10 1 each, the scatter 2 a
-    rank) and f32 (batch 4) against one process (``phase_tensor_parallel``
+    (batch 8, counted: K1 8, K3 1, K6 8, K7–K10 1 each, the scatter 2,
+    K13 and K14 65 each a rank) and f32 (batch 4) against one process (``phase_tensor_parallel``
     states the tolerances); each rank's bytes of parameters, gradients
     and AdamW moments (at most 0.51 of one process's), peak memory, the
     model axis's collectives by kind and the convolutions' and matmuls'
@@ -199,10 +205,10 @@ Phases, each printing one JSON line:
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary of all thirteen kernels (the ten TPU
-kernels' counterparts, the scatter, K11 and K12; each kernel's
+``{"kernels": [...]}`` summary of all fifteen kernels (the ten TPU
+kernels' counterparts, the scatter, K11, K12, K13 and K14; each kernel's
 ``launches`` from the path it serves: K1–K3 and K12 from the eval path,
-K6–K10 and the scatter from the train path, K4 and K5 from the
+K6–K10, the scatter, K13 and K14 from the train path, K4 and K5 from the
 single-image path, K11 from the Mask2Former sweep, every path's counts (the evaluator's, the Mask2Former
 sweep's, the two CLIs', the pretrained eval's, the remat steps',
 the augmentation pipeline's, one serving request's, the parallel
@@ -1159,6 +1165,150 @@ def phase_train_kernels(dev):
     recs.update(depth_kernels(dev, g))
     relu_decisions(dev, g)
     recs['neighbor_pp_adjoint'] = pp_adjoint_kernel(dev, g)
+    recs.update(bn_train_kernels(dev, g))
+    return recs
+
+
+# K13/K14's shapes in the train cell (bf16, channels-last, ReLU): the
+# ResNet-50's stem, and the SegFormer depth head's BN after K9 at full
+# resolution; then cases off them (shape, residual, ReLU), each in both
+# layouts: a ragged C, 6 groups, 256 groups, a C above the vector path's,
+# 1×1 maps.
+K13_STEM = (B, 64, H // 2, W // 2)
+K13_DEPTH = (B, 64, H, W)
+K13_RAGGED = (((2, 20, 7, 9), True, True), ((3, 48, 4, 4), True, False),
+              ((1, 2048, 3, 5), True, True), ((2, 4096, 2, 2), False, False),
+              ((8, 256, 1, 1), False, True))
+
+
+def bn_train_held(x, w, b, res, dy, relu):
+    """K13 and K14 against their plain versions in f64 on the same
+    operands: the largest difference over the largest value of y, dx,
+    dweight and dbias; raises beyond 1e-5 (f32) or 2^-7 (bf16, one step of
+    the largest value). Returns (error, y, stats)."""
+    import torch
+    from awsegbench_torch.ops import bn_train as bnt
+    y, stats = bnt.bn_train(x, w, b, 1e-5, res, relu)
+    dx, _, dwb = torch.ops.awseg.bn_train_backward(
+        dy, x, y if relu else None, stats, w, False)
+    d = [None if t is None else t.double() for t in (x, w, b, res, dy)]
+    y64, st64 = bnt.bn_train_plain(d[0], d[1], d[2], 1e-5, d[3], relu)
+    gx, _, gwb = bnt.bn_train_backward_plain(
+        d[4], d[0], y.double() if relu else None, st64, d[1], False)
+    err = max(float((a.double() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+              for a, want in ((y, y64), (dx, gx), (dwb[0], gwb[0]),
+                              (dwb[1], gwb[1])))
+    if not err <= (1e-5 if x.dtype == torch.float32 else 2 ** -7):
+        raise AssertionError(f'bn_train {x.dtype} {tuple(x.shape)} strides '
+                             f'{x.stride()}: off by {err} of the largest '
+                             'value')
+    return err, y, stats
+
+
+def bn_train_kernels(dev, g):
+    """K13 (``bn_train``) and K14 (``bn_train_backward``) against their
+    plain versions in f64 at ``K13_RAGGED`` in both layouts and dtypes, and
+    in bf16 with the ReLU at the stem (``K13_STEM``) and the SegFormer depth
+    BN (``K13_DEPTH``), where each is timed beside its bound (the two
+    passes' bytes: x read twice and y written, forward; dy, x and y read
+    twice and dx written, backward), the plain version (the old
+    composition, and its gradient's formula) and the library's train
+    ``F.batch_norm`` then ``relu_`` (its backward by autograd), a yardstick
+    only. Returns their records."""
+    import torch
+    import torch.nn.functional as F
+    from awsegbench_torch.ops import bn_train as bnt
+
+    def operands(shape, dtype, lay, residual):
+        fmt = (torch.channels_last if lay == 'nhwc'
+               else torch.contiguous_format)
+
+        def t(scale=1.0, shift=0.0):
+            return (torch.randn(shape, generator=g, device=dev) * scale
+                    + shift).to(dtype).contiguous(memory_format=fmt)
+        c = shape[1]
+        return (t(1.5, 0.3),
+                (torch.randn(c, generator=g, device=dev) * 0.5 + 1).to(dtype),
+                (torch.randn(c, generator=g, device=dev) * 0.5).to(dtype),
+                t() if residual else None, t())
+
+    errs = {'float32': 0.0, 'bfloat16': 0.0}
+    for name in errs:
+        for shape, residual, relu in K13_RAGGED:
+            for lay in ('nhwc', 'nchw'):
+                ops = operands(shape, getattr(torch, name), lay, residual)
+                errs[name] = max(errs[name], bn_train_held(*ops, relu)[0])
+
+    def timed(shape):
+        x, w, b, _, dy = operands(shape, torch.bfloat16, 'nhwc', False)
+        err, y, stats = bn_train_held(x, w, b, None, dy, True)
+        n, es = x.numel(), x.element_size()
+        xl = x.detach().requires_grad_()
+        wl, bl = w.float().requires_grad_(), b.float().requires_grad_()
+        ylib = F.batch_norm(xl, None, None, wl, bl, training=True,
+                            eps=1e-5).relu_()
+
+        def lib_fwd():
+            return F.batch_norm(x, None, None, wl, bl, training=True,
+                                eps=1e-5).relu_()
+
+        def lib_bwd():
+            return torch.autograd.grad(ylib, (xl, wl, bl), dy,
+                                       retain_graph=True)
+
+        fwd, bwd = {}, {}
+        fwd['bound_ms'], fwd['bound_by'] = bound(0.0, 3.0 * n * es,
+                                                 BF16_PEAK)
+        bwd['bound_ms'], bwd['bound_by'] = bound(0.0, 7.0 * n * es,
+                                                 BF16_PEAK)
+        # each input read once, each output written once
+        fwd['single_read_bound_ms'] = 2.0 * n * es / HBM_BW * 1e3
+        bwd['single_read_bound_ms'] = 4.0 * n * es / HBM_BW * 1e3
+        fwd.update(
+            ms=time_ms(lambda: bnt.bn_train(x, w, b, 1e-5, None, True)),
+            device_ms=device_ms(lambda: bnt.bn_train(x, w, b, 1e-5, None,
+                                                     True),
+                                ('reduce_nhwc8', 'finish', 'apply_nhwc8')),
+            plain_ms=time_ms(lambda: bnt.bn_train_plain(x, w, b, 1e-5,
+                                                        None, True), reps=5),
+            library_ms=time_ms(lib_fwd))
+
+        def k14():
+            return torch.ops.awseg.bn_train_backward(dy, x, y, stats, w,
+                                                     False)
+        bwd.update(
+            ms=time_ms(k14),
+            device_ms=device_ms(k14, ('reduce_nhwc8', 'finish',
+                                      'grad_nhwc8')),
+            plain_ms=time_ms(lambda: bnt.bn_train_backward_plain(
+                dy, x, y, stats, w, False), reps=5),
+            library_ms=time_ms(lib_bwd, reps=5))
+        for rec in (fwd, bwd):
+            rec.update(shape=list(shape), max_abs_err=err,
+                       roofline=rec['bound_ms'] / rec['device_ms'])
+        del x, w, b, dy, y, stats, xl, ylib
+        torch.cuda.empty_cache()
+        return fwd, bwd
+
+    (stem_f, stem_b), (depth_f, depth_b) = timed(K13_STEM), timed(K13_DEPTH)
+    recs = {}
+    for name, stem, depth in (('bn_train', stem_f, depth_f),
+                              ('bn_train_backward', stem_b, depth_b)):
+        recs[name] = dict(
+            name=name, route='cuda',
+            source='awsegbench_torch/csrc/bn_train.cu', replaces=None,
+            max_abs_err=max(errs['bfloat16'], stem['max_abs_err']),
+            max_abs_err_f32=errs['float32'], ms=stem['ms'],
+            plain_ms=stem['plain_ms'], bound_ms=stem['bound_ms'],
+            bound_by=stem['bound_by'], library_ms=stem['library_ms'],
+            device_ms=stem['device_ms'], ragged_cases=2 * len(K13_RAGGED),
+            stem=stem, segformer_depth_bn=depth)
+        for case in (stem, depth):
+            if not case['ms'] < case['plain_ms']:
+                raise AssertionError(f'{name} {case["shape"]}: {case["ms"]} '
+                                     f'ms, not below the plain version\'s '
+                                     f'{case["plain_ms"]} ms')
     return recs
 
 
@@ -1528,7 +1678,13 @@ ATTENTION_DESIGNS = {'bfloat16': 'mma_bf16', 'float32': 'simt_f32'}
 TRAIN_COUNTERS = ('sr_attention', 'splat_coverage_batched',
                   'sr_attention_backward', 'seg_core_train',
                   'seg_core_train_backward', 'd1_core_train',
-                  'd1_core_train_backward', 'neighbor_pp_adjoint')
+                  'd1_core_train_backward', 'neighbor_pp_adjoint',
+                  'bn_train', 'bn_train_backward')
+# K13 and K14 launches of one train step of the ensemble: every BN in train
+# mode (64 in DeepLabV3+, 1 in the SegFormer depth head after K9), once
+# each on one process (twice under a data-parallel mesh: the sums, then
+# the pass that reads them)
+TRAIN_BNS = 65
 SINGLE_COUNTERS = ('splat_coverage_windowed', 'splat_coverage_tiled')
 # K5's shapes: Cityscapes' height × width, then the same pixels upright
 K5_SHAPES = ((1024, 2048), (2048, 1024))
@@ -1597,6 +1753,10 @@ def phase_train_path(dev):
         return losses, time.perf_counter() - t0
 
     (loss_dicts, dt), launches = run_counted(run, TRAIN_COUNTERS, 'train')
+    for op in ('bn_train', 'bn_train_backward'):
+        if launches[op] != TRAIN_BNS * len(batches):
+            raise AssertionError(f'train: {launches[op]} {op} launches, not '
+                                 f'{TRAIN_BNS} a step')
     losses = [float(x['total_loss']) for x in loss_dicts]
     depth_losses = [float(x['depth_loss']) for x in loss_dicts]
     if not all(map(math.isfinite, losses + depth_losses)) \
@@ -3768,7 +3928,8 @@ def phase_tensor_parallel(dev):
         want = {'sr_attention': 8, 'splat_coverage_batched': 1,
                 'sr_attention_backward': 8, 'seg_core_train': 1,
                 'seg_core_train_backward': 1, 'd1_core_train': 1,
-                'd1_core_train_backward': 1, 'neighbor_pp_adjoint': 2}
+                'd1_core_train_backward': 1, 'neighbor_pp_adjoint': 2,
+                'bn_train': TRAIN_BNS, 'bn_train_backward': TRAIN_BNS}
         got = {k: r['train_launches'][k] for k in want}
         if got != want:
             failed.append(f'a rank\'s train step launched {got}, expected '
@@ -3964,13 +4125,21 @@ def main() -> int:
                 line['launches_by_design_by_path'] = {
                     p: c[f'{name}.by_design'] for p, c in paths.items()}
             summary.append(line)
-    if len(summary) != 13:
-        raise AssertionError(f'{len(summary)} kernels in the summary, not 13')
+    if len(summary) != 15:
+        raise AssertionError(f'{len(summary)} kernels in the summary, not 15')
     # K12 is eval BN: every eval path launches it, no train path
     k12 = {p: c['bn_act'] for p, c in paths.items()}
     if any(k12[p] <= 0 for p in EVAL_PATHS) or any(k12[p]
                                                     for p in TRAIN_PATHS):
         raise AssertionError(f'K12 launches by path: {k12}')
+    # K13 and K14 are train BN: every train path launches them (the train
+    # CLI too), no path that only evaluates
+    for op in ('bn_train', 'bn_train_backward'):
+        k13 = {p: c[op] for p, c in paths.items()}
+        if any(k13[p] <= 0 for p in TRAIN_PATHS + ('cli_train',)) or any(
+                k13[p] for p in paths
+                if p not in TRAIN_PATHS + ('cli_train',)):
+            raise AssertionError(f'{op} launches by path: {k13}')
     emit({'kernels': summary})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
