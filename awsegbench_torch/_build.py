@@ -38,7 +38,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 EXTRA_FLAGS = {'splat': ['-fmad=false']}
 KERNELS = ('sr_attention', 'sr_attention_bwd', 'seg_head', 'seg_head_train',
            'depth_stage1_train', 'pp_adjoint', 'splat', 'ms_deform_attn',
-           'bn_act', 'bn_train')
+           'bn_act', 'bn_train', 'window_attention')
 
 # The launch table: the kernels launched since it was last cleared, by op
 # name and, for the ops with two designs, by (op name, design).

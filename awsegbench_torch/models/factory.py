@@ -1,20 +1,22 @@
 """Model factory (counterpart of ``awsegbench/models/factory.py``).
 
 ``create_model`` builds 'segformer' | 'deeplabv3plus' | 'ensemble' |
-'mask2former' from a plain dict (the model section of a config),
-initialises it from a seed and puts it on the device in eval mode
-(``TrainStep`` keeps its f32 parameters and switches it to train mode).
-The init is the port's own: He-normal
+'mask2former' | 'mask2former_swin' from a plain dict (the model section
+of a config), initialises it from a seed and puts it on the device in
+eval mode (``TrainStep`` keeps its f32 parameters and switches it to
+train mode). The init is the port's own: He-normal
 convs over their fan-in, truncated-normal 0.02 dense layers, zero
 biases, identity norms, except the last BN of each ResNet residual branch,
 whose scale starts at 0.25 (as the common zero-init of that scale, but
-leaving the branch in play), and Mask2Former's parts as
+leaving the branch in play), Mask2Former's parts as
 ``mask2former.init_parameters`` says (the deformable attention's offsets
-start at the published grid). With identity BN statistics that keeps the
-activations' scale through the 16 residual blocks and the logits O(10);
-the JAX package's fan-out init without it gives logits in the thousands,
-where an f32 comparison at an absolute tolerance means little. Weights
-for parity with the JAX package come from ``convert.flax_to_torch``.
+start at the published grid) and Swin's as ``swin.init_parameters`` says
+(the relative position bias tables). With identity BN statistics that
+keeps the activations' scale through the 16 residual blocks and the
+logits O(10); the JAX package's fan-out init without it gives logits in
+the thousands, where an f32 comparison at an absolute tolerance means
+little. Weights for parity with the JAX package come from
+``convert.flax_to_torch``.
 
 Pretrained encoders are grafted where the JAX package grafts them: in the
 trainer, through :func:`init_model_variables` (``models/pretrained.py``),
@@ -33,9 +35,10 @@ from ..utils.config import check_tpu_section
 from .deeplab import Bottleneck, DeepLabV3PlusModel
 from .ensemble import EnsembleModel
 from .heads import BatchNorm
-from .mask2former import Mask2FormerModel, init_parameters
+from .mask2former import Mask2FormerModel, init_parameters, mask2former_swin
 from .pretrained import apply_pretrained
 from .segformer import SegFormerModel, mit_variant_config, mit_variant_name
+from .swin import init_parameters as init_swin
 
 
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -52,7 +55,8 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
             elif isinstance(mod, nn.Linear):
                 nn.init.trunc_normal_(mod.weight, std=0.02, a=-0.04, b=0.04,
                                       generator=g)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -60,6 +64,7 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
             if isinstance(mod, Bottleneck):
                 mod.BatchNorm_0.weight.fill_(0.25)
         init_parameters(model, g)
+        init_swin(model, g)
     return model
 
 
@@ -108,6 +113,10 @@ def create_model(config: Mapping[str, Any], device: str | torch.device = 'cuda',
         model = DeepLabV3PlusModel(num_classes, include_depth)
     elif kind == 'mask2former':
         model = Mask2FormerModel(num_classes)
+    elif kind == 'mask2former_swin':
+        # the Swin-L of the published Cityscapes model; a 'swin' section
+        # (embed_dim, depths, heads, window, mlp_ratio) replaces sizes
+        model = mask2former_swin(num_classes, **(cfg.get('swin') or {}))
     elif kind == 'ensemble':
         model = EnsembleModel(
             num_classes, include_depth,

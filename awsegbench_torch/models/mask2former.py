@@ -1,12 +1,15 @@
-"""Mask2Former with a ResNet-50 backbone, semantic inference (no
+"""Mask2Former with a ResNet-50 or a Swin backbone, semantic inference (no
 counterpart in the JAX package).
 
 Cheng et al., "Masked-attention Mask Transformer for Universal Image
-Segmentation" (arXiv:2112.01527), as its Cityscapes semantic configuration
-(``maskformer2_R50_bs16_90k.yaml``) builds it:
+Segmentation" (arXiv:2112.01527), as its Cityscapes semantic configurations
+(``maskformer2_R50_bs16_90k.yaml``, and
+``swin/maskformer2_swin_large_IN21k_384_bs16_90k.yaml`` on the same base)
+build it:
 
 * backbone: ``deeplab.ResNetEncoder`` at output stride 32 (res2…res5 at
-  1/4…1/32);
+  1/4…1/32), or ``swin.SwinTransformer`` (:func:`mask2former_swin`; Swin-L
+  by default), whose widths the pixel decoder's inputs take;
 * pixel decoder (``MSDeformAttnPixelDecoder``): res5, res4, res3 each
   through a 1×1 conv and GroupNorm(32); sine positions (128 features a
   axis, normalised) plus a learned level embedding; 6 post-norm encoder
@@ -39,9 +42,10 @@ the heads.
 
 NHWC images in, ``{'segmentation': [B, H, W, num_classes]}`` out. The
 module names of the pixel decoder and the decoder are the published
-checkpoint's (under ``sem_seg_head.``); the backbone keeps the port's
-``ResNetEncoder`` names. ``factory.init_model`` gives ``sampling_offsets``
-the published grid (Deformable DETR's ``_reset_parameters``); the module
+checkpoint's (under ``sem_seg_head.``); the ResNet keeps the port's
+``ResNetEncoder`` names, the Swin the published ones.
+``factory.init_model`` gives ``sampling_offsets`` the published grid
+(Deformable DETR's ``_reset_parameters``); the module
 registers no load hook, so a checkpoint holding the grid is loaded as it
 is. Spatial tiling cannot split it (``tileable``): its attention is
 global.
@@ -59,6 +63,7 @@ from .._device import const
 from ..ops.ms_deform_attn import ms_deform_attn
 from .deeplab import ResNetEncoder
 from .heads import nhwc_to_nchw
+from .swin import SwinTransformer
 
 LEVELS = 3            # res5, res4, res3: the encoder's and the decoder's levels
 
@@ -379,19 +384,24 @@ def attention_keep(masks: torch.Tensor, size: tuple[int, int]
 
 
 class Mask2FormerModel(nn.Module):
-    """Mask2Former-R50 for semantic segmentation; NHWC in and out."""
+    """Mask2Former for semantic segmentation; NHWC in and out. ``backbone``
+    (default: the ResNet-50 at output stride 32) returns res2…res5 NCHW as
+    its last four outputs, of ``in_channels``."""
 
     tileable = False
 
-    def __init__(self, num_classes: int = 19) -> None:
+    def __init__(self, num_classes: int = 19,
+                 backbone: nn.Module | None = None,
+                 in_channels=(256, 512, 1024, 2048)) -> None:
         super().__init__()
-        self.backbone = ResNetEncoder(output_stride=32)
-        self.pixel_decoder = MSDeformAttnPixelDecoder()
+        self.backbone = (ResNetEncoder(output_stride=32) if backbone is None
+                         else backbone)
+        self.pixel_decoder = MSDeformAttnPixelDecoder(in_channels)
         self.predictor = MaskedTransformerDecoder(num_classes)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         h, w = x.shape[1], x.shape[2]
-        res = self.backbone(nhwc_to_nchw(x))[2:]        # res2 … res5
+        res = self.backbone(nhwc_to_nchw(x))[-4:]       # res2 … res5
         mask_features, levels = self.pixel_decoder(res)
         cls, masks = self.predictor(levels, mask_features)
         return {'segmentation': self.semantic_inference(cls, masks, (h, w))}
@@ -406,6 +416,20 @@ class Mask2FormerModel(nn.Module):
                            align_corners=False).sigmoid_()
         return torch.bmm(up.flatten(2).transpose(1, 2), probs).view(
             b, size[0], size[1], probs.shape[-1])
+
+
+# Swin-L (ImageNet-22k, 384): the published Mask2Former Cityscapes model's
+SWIN_L = {'embed_dim': 192, 'depths': (2, 2, 18, 2), 'heads': (6, 12, 24, 48),
+          'window': 12, 'mlp_ratio': 4}
+
+
+def mask2former_swin(num_classes: int = 19, **swin) -> Mask2FormerModel:
+    """Mask2Former on a Swin backbone of :data:`SWIN_L`'s sizes, those in
+    ``swin`` replaced."""
+    s = {**SWIN_L, **swin}
+    backbone = SwinTransformer(s['embed_dim'], s['depths'], s['heads'],
+                               s['window'], s['mlp_ratio'])
+    return Mask2FormerModel(num_classes, backbone, backbone.channels)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:

@@ -207,6 +207,8 @@ def apply_pretrained(model: nn.Module, model_config: Mapping[str, Any],
         targets = [('resnet', 'ResNetEncoder_0')]
     elif model_type == 'mask2former':
         targets = [('resnet', 'backbone')]
+    elif model_type == 'mask2former_swin':
+        targets = []             # no Swin weights file is read
     else:                        # ensemble: under the members' module names
         targets = [('segformer', 'segformer.MiTEncoder_0'),
                    ('resnet', 'deeplabv3plus.ResNetEncoder_0')]

@@ -8,12 +8,12 @@ Gradients (``register_autograd``): K1's is the op
 or K10, then the scatter); each saves what its kernel recomputes from, and
 on the CPU is autograd through the plain forward. Train-mode BN's
 (``awseg::bn_train``, K13) is ``awseg::bn_train_backward`` (K14), the
-gradient's formula on the CPU. The eval kernels (K2, K11, K12) take the
-plain version's autograd on the CPU and raise on the card. The eval ops
-(K1, K2, K11, K12) and K13/K14 have fakes that compute the output's shape
-and dtype with no guard on the batch, so a symbolic batch survives
-``torch.export``; a serving artifact needs this module imported before
-``torch.export.load``.
+gradient's formula on the CPU. The eval kernels (K2, K11, K12, K15) take
+the plain version's autograd on the CPU and raise on the card. The eval
+ops (K1, K2, K11, K12, K15) and K13/K14 have fakes that compute the
+output's shape and dtype with no guard on the batch, so a symbolic batch
+survives ``torch.export``; a serving artifact needs this module imported
+before ``torch.export.load``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from ..parallel.collectives import active_mesh, data_parallel
 from . import attention, bn_act as bna, bn_train as bnt
 from . import depthkernels_train as dk, splat
 from . import headkernels, headkernels_train as ht, ms_deform_attn as msda
+from . import window_attention as wa
 
 # The launch table's keys (``_build.launches``): each op that launches a
 # kernel of csrc/, and the designs it chooses from by the dtype (counted
@@ -105,7 +106,7 @@ def _eval_only(op, plain):
     op.register_autograd(backward, setup_context=setup_context)
 
 
-# --- eval: K1 (and its backward, K6), K2, K11, K12
+# --- eval: K1 (and its backward, K6), K2, K11, K12, K15
 
 sr_attention = _op(
     'sr_attention', '(Tensor q, Tensor k, Tensor v, float scale) -> Tensor',
@@ -164,6 +165,20 @@ def _ms_deform_attn_fake(value, shapes, loc, attn):
     msda.check(value, shapes, loc, attn)
     b, _, m, d = value.shape
     return value.new_empty((b, loc.shape[1], m * d))
+
+
+window_attention = _op(
+    'window_attention', '(Tensor qkv, Tensor table, int heads, int window, '
+    'int shift, float scale) -> Tensor', wa.window_attention_plain,
+    wa._launch, wa.DESIGNS)
+_eval_only(window_attention, wa.window_attention_plain)
+
+
+@window_attention.register_fake
+def _window_attention_fake(qkv, table, heads, window, shift, scale):
+    wa.check(qkv, table, heads, window, shift)
+    b, hp, wp, c3 = qkv.shape
+    return qkv.new_empty((b, hp, wp, c3 // 3))
 
 
 bn_act = _op(

@@ -24,7 +24,14 @@ Phases, each printing one JSON line:
    ReLU in one pass) in f32 and bf16 at ragged shapes in both layouts and
    in bf16 at Mask2Former-R50's stem (channels-last [4, 64, 512, 1024])
    and at a layer-1 block's last BN with its residual ([4, 256, 256,
-   512]), where it must beat its plain version, the old composition;
+   512]), where it must beat its plain version, the old composition; and
+   K15 (Swin's shifted-window attention with its relative position bias)
+   in f32 and bf16 at ragged shapes (``K15_RAGGED``) and at the Swin-L
+   cell's stage-1 and stage-3 launches (1024×2048, batch 4: padded maps
+   264×516 with 6 heads and 72×132 with 24, shifted by 6), timed there
+   beside its plain version, the published composition in bf16 (which it
+   must beat), SDPA's memory-efficient kernel on the materialised bias and
+   mask, and its bound (``portbench/counts/swin.py``);
    median times of the
    kernel, the plain version and, for attention,
    ``F.scaled_dot_product_attention``, for K12 the library's eval
@@ -117,6 +124,14 @@ Phases, each printing one JSON line:
     (semantic scores within 1e-4 relative L2, argmax 99.9% equal) and a
     sweep of 2 batches of 2 with the same draws, held as the evaluator
     phase holds the ensemble's.
+10b. mask2former_swin: the same sweep on Mask2Former-Swin-L (``type:
+    mask2former_swin``) as the ``sweep-m2fswinl-cityscapes`` cell runs
+    it, 1024×2048, batch 4, bf16, over 3 batches: counted from zero (K15
+    exactly 24 launches a batch, one a Swin block, all on the tensor
+    cores; K11 6; K12 none; K3 must launch), the count checks, images/s,
+    ms per batch, peak memory and K15's device time in one batch. Then
+    card against CPU in f32 from the same weights: the forward at
+    128×256, batch 1, and a sweep of 2 batches of 1, held as the R50's.
 11. cli: the train CLI (``awsegbench_torch.cli.train.main``) in this
     process on ``configs/default.yaml`` with an empty data root (the
     synthetic 100 train and 20 val/test images), 512×1024, batch 8, one
@@ -205,12 +220,13 @@ Phases, each printing one JSON line:
 
 TF32 is switched off for matmuls and cuDNN convs throughout, so the f32
 comparisons compare f32 arithmetic. Before the last line it prints the
-``{"kernels": [...]}`` summary of all fifteen kernels (the ten TPU
-kernels' counterparts, the scatter, K11, K12, K13 and K14; each kernel's
+``{"kernels": [...]}`` summary of all sixteen kernels (the ten TPU
+kernels' counterparts, the scatter, K11, K12, K13, K14 and K15; each kernel's
 ``launches`` from the path it serves: K1–K3 and K12 from the eval path,
 K6–K10, the scatter, K13 and K14 from the train path, K4 and K5 from the
-single-image path, K11 from the Mask2Former sweep, every path's counts (the evaluator's, the Mask2Former
-sweep's, the two CLIs', the pretrained eval's, the remat steps',
+single-image path, K11 from the Mask2Former sweep, K15 from the Swin
+one, which alone launches it, every path's counts (the evaluator's, the
+two Mask2Former sweeps', the two CLIs', the pretrained eval's, the remat steps',
 the augmentation pipeline's, one serving request's, the parallel
 phase's tiled forward, tiled sweep and each rank's step, and the
 tensor_parallel phase's eval forward and train step on each rank too) under
@@ -244,6 +260,10 @@ TRAIN_CFG = MODEL_CFG             # bench.py:337's train configuration
 M2F_CFG = {'type': 'mask2former', 'num_classes': 19}
 M2F_H, M2F_W, M2F_B = 1024, 2048, 4
 M2F_LEVELS = (32, 64, 64, 128, 128, 256)
+# Mask2Former-Swin-L as the sweep cell sweep-m2fswinl-cityscapes runs it
+# (the same sizes and batch); K15 launches a forward, one a Swin block
+M2F_SWIN_CFG = {'type': 'mask2former_swin', 'num_classes': 19}
+M2F_SWIN_BLOCKS = 24
 # Parameters that a train step leaves where they were, each with its reason.
 STILL_BY_CONSTRUCTION = {
     'segformer.SegmentationHead_0.Conv_0.bias':
@@ -514,7 +534,7 @@ def splat_ragged(dev, g) -> int:
 
 
 def phase_kernels(dev):
-    """K1–K3, K11 and K12 against their plain versions; returns the
+    """K1–K3, K11, K12 and K15 against their plain versions; returns the
     kernels' records."""
     import torch
     import torch.nn.functional as F
@@ -620,6 +640,7 @@ def phase_kernels(dev):
 
     recs['ms_deform_attn'] = deform_kernel(dev, g)
     recs['bn_act'] = bn_act_kernel(dev, g)
+    recs['window_attention'] = window_kernel(dev, g)
     return recs
 
 
@@ -754,6 +775,145 @@ def deform_kernel(dev, g):
     del value, loc, attn
     torch.cuda.empty_cache()
     return rec
+
+
+# K15 against its plain version (the published composition in f32): f32
+# within a few ulps (the sums run in other orders), bf16 within 2^-7 and
+# 8e-3 (the kernel rounds its probabilities to bf16 for the product, 2^-9
+# of each term; both round the output once). Cases off the cell
+# (b, hp, wp, heads, window, shift): a window of 7 (the last row tile
+# ragged), blocks of 3 heads and of 1, one window a side, a window of 5.
+K15_TOLS = {'float32': (1e-5, 1e-5), 'bfloat16': (2 ** -7, 8e-3)}
+K15_RAGGED = ((2, 14, 21, 3, 7, 3), (1, 7, 7, 5, 7, 0), (2, 24, 36, 2, 12, 6),
+              (1, 12, 24, 1, 12, 0), (3, 10, 15, 4, 5, 2))
+
+
+def k15_stages():
+    """The cell's stage-1 and stage-3 launches (b, hp, wp, heads), from
+    ``portbench/counts/swin.py``: the padded maps of a 1024×2048 image."""
+    import json
+    from portbench.counts.swin import k15_launches
+    config = json.loads((ROOT / 'portbench' / 'configs'
+                         / 'mask2former-swin-l.json').read_text())
+    launches = k15_launches(config, M2F_B, M2F_H, M2F_W)
+    return [launches[0][:4], launches[4][:4]]
+
+
+def window_sdpa(qkv, table, heads, window, shift, scale, bias):
+    """The published composition with SDPA's memory-efficient kernel in
+    place of the scores, the softmax and the product, ``bias`` the table's
+    gather plus the shift mask materialised, [B·nW, heads, N, N] (a
+    yardstick: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from awsegbench_torch.ops import window_attention as wa
+    b, hp, wp, c3 = qkv.shape
+    c, n = c3 // 3, window * window
+    x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    x = wa.partition(x, window).reshape(-1, n, 3, heads, c // heads)
+    q, k, v = x.permute(2, 0, 3, 1, 4).unbind(0)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                             scale=scale)
+    out = wa.unpartition(out.transpose(1, 2).reshape(-1, window, window, c),
+                         window, hp, wp)
+    return torch.roll(out, (shift, shift), (1, 2)) if shift else out
+
+
+def window_kernel(dev, g):
+    """K15 against its plain version in f32 and bf16 at ``K15_RAGGED`` and
+    at the Mask2Former-Swin-L cell's stage-1 and stage-3 launches
+    (``k15_stages``, shifted by 6), where it is timed (events and device
+    time) beside the plain version, the published composition in bf16,
+    SDPA's memory-efficient kernel on the materialised bias and mask
+    (``library_ms``, with the partition and the rolls) and its bound
+    (``portbench/counts/swin.py``), and must beat the published
+    composition; returns its record."""
+    import torch
+    from awsegbench_torch.ops import window_attention as wa
+    from portbench.counts.swin import k15_counts
+
+    scale = 32 ** -0.5
+
+    def operands(b, hp, wp, heads, window, dt):
+        qkv = torch.randn(b, hp, wp, 3 * heads * 32, generator=g, device=dev)
+        table = torch.randn((2 * window - 1) ** 2, heads, generator=g,
+                            device=dev)
+        return qkv.to(dt), table.to(dt)
+
+    errs = dict.fromkeys(K15_TOLS, 0.0)
+    for name, (rtol, atol) in K15_TOLS.items():
+        dt = getattr(torch, name)
+        for b, hp, wp, heads, window, shift in K15_RAGGED:
+            qkv, table = operands(b, hp, wp, heads, window, dt)
+            got = wa.window_attention(qkv, table, heads, window, shift, scale)
+            want = wa.window_attention_plain(qkv, table, heads, window, shift,
+                                             scale)
+            check_close(f'window_attention {name} {b}x{hp}x{wp} h{heads} '
+                        f'w{window} s{shift}', got, want, rtol, atol)
+            errs[name] = max(errs[name], max_err(got, want))
+    by_stage = []
+    for b, hp, wp, heads in k15_stages():
+        for name, (rtol, atol) in K15_TOLS.items():
+            qkv, table = operands(b, hp, wp, heads, 12,
+                                  getattr(torch, name))
+            got = wa.window_attention(qkv, table, heads, 12, 6, scale)
+            want = wa.window_attention_plain(qkv, table, heads, 12, 6, scale)
+            check_close(f'window_attention {name} at the cell {hp}x{wp}',
+                        got, want, rtol, atol)
+            errs[name] = max(errs[name], max_err(got, want))
+            del got
+        want32 = want.float()           # the bf16 operands' plain output
+        del want
+        index = wa.relative_position_index(12).to(dev)
+        bias = (table[index.view(-1)].view(144, 144, heads).permute(2, 0, 1)
+                .unsqueeze(0) + wa.shift_mask(hp, wp, 12, 6).to(
+                    dev, qkv.dtype).unsqueeze(1)).repeat(b, 1, 1, 1)
+
+        def k15():
+            return wa.window_attention(qkv, table, heads, 12, 6, scale)
+
+        def published():
+            return wa.window_attention_published(qkv, table, heads, 12, 6,
+                                                 scale)
+
+        # the yardstick computes the same function: bf16 scores and
+        # probabilities put it within 1% (relative L2) of the plain version
+        lib_rel = float((window_sdpa(qkv, table, heads, 12, 6, scale, bias)
+                         .float() - want32).norm() / want32.norm())
+        if not lib_rel <= 1e-2:
+            raise AssertionError(f'window_attention SDPA yardstick at '
+                                 f'{hp}x{wp}: relative L2 {lib_rel}')
+        del want32
+        flops, nbytes = k15_counts(b, hp, wp, heads, 12)
+        bms, by = bound(flops, nbytes, BF16_PEAK)
+        rec = dict(
+            shape=[b, hp, wp, heads], ms=time_ms(k15),
+            device_ms=device_ms(k15, ('window_attention',)),
+            plain_ms=time_ms(lambda: wa.window_attention_plain(
+                qkv, table, heads, 12, 6, scale), reps=5, warmup=1),
+            published_ms=time_ms(published, reps=5, warmup=1),
+            library_ms=time_ms(lambda: window_sdpa(qkv, table, heads, 12, 6,
+                                                   scale, bias), reps=5,
+                               warmup=1),
+            library_rel=lib_rel, bound_ms=bms, bound_by=by)
+        if not rec['ms'] < rec['published_ms']:
+            raise AssertionError(f'window_attention at {hp}x{wp}: '
+                                 f'{rec["ms"]} ms, not below the published '
+                                 f'composition\'s {rec["published_ms"]} ms')
+        by_stage.append(rec)
+        del qkv, table, bias
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in by_stage)
+             for k in ('ms', 'device_ms', 'plain_ms', 'published_ms',
+                       'library_ms', 'bound_ms')}
+    return dict(
+        name='window_attention', route='cuda',
+        source='awsegbench_torch/csrc/window_attention.cu', replaces=None,
+        max_abs_err=errs['bfloat16'], max_abs_err_f32=errs['float32'],
+        bound_by=by_stage[0]['bound_by'], design=ATTENTION_DESIGNS,
+        by_stage=by_stage, ragged_cases=len(K15_RAGGED), **total)
 
 
 # K12's cases off the cells' shapes (shape, residual, ReLU), each in both
@@ -2174,67 +2334,101 @@ def phase_evaluator(dev):
 
 M2F_SWEEP_BATCHES = 6
 M2F_LAYERS = 6                    # pixel-decoder layers: one K11 launch each
+M2F_SWIN_BATCHES = 3
 
 
 def phase_mask2former(dev):
     """The robustness sweep (``Evaluator``) on Mask2Former-R50 as the
     ``sweep-m2fr50-cityscapes`` cell runs it: 1024×2048, batch 4, bf16,
     over ``M2F_SWEEP_BATCHES`` synthetic batches, counted from zero (K11
-    exactly ``M2F_LAYERS`` launches a batch, K3 at least one), then timed
-    in a second sweep with its peak memory; K11's device time in one
-    batch's forward. Then card against CPU in f32 from the same weights:
-    the forward at 128×256, batch 2 (semantic scores within 1e-4 relative
-    L2 error: the two sides sum in other orders, a few ulps a product;
-    argmax at least 99.9% equal), and a sweep of 2 batches of 2 with the
-    same draws (confusion matrices within 0.1% of each weather's pixels,
-    mIoU and ECE within 2e-3, as the evaluator phase holds the ensemble).
-    Returns the counted sweep's launches."""
+    exactly ``M2F_LAYERS`` launches a batch, K12 ``M2F_BNS``, K3 at least
+    one), then timed in a second sweep with its peak memory; K11's device
+    time in one batch's forward. Then card against CPU in f32 from the
+    same weights: the forward at 128×256, batch 2 (semantic scores within
+    1e-4 relative L2 error: the two sides sum in other orders, a few ulps a
+    product; argmax at least 99.9% equal), and a sweep of 2 batches of 2
+    with the same draws (confusion matrices within 0.1% of each weather's
+    pixels, mIoU and ECE within 2e-3, as the evaluator phase holds the
+    ensemble). Returns the counted sweep's launches."""
+    return mask2former_sweep(
+        dev, 'mask2former', M2F_CFG, M2F_SWEEP_BATCHES,
+        {'ms_deform_attn': M2F_LAYERS, 'bn_act': M2F_BNS},
+        ('ms_deform_attn', 'splat_coverage_batched', 'bn_act'),
+        ('k11', 'ms_deform_attn'), cpu_batch=2, seed=11)
+
+
+def phase_mask2former_swin(dev):
+    """The same sweep on Mask2Former-Swin-L as the
+    ``sweep-m2fswinl-cityscapes`` cell runs it, over ``M2F_SWIN_BATCHES``
+    batches: K15 exactly ``M2F_SWIN_BLOCKS`` launches a batch, all through
+    its tensor-core design, K11 ``M2F_LAYERS``, K12 none (the model has no
+    BN), K3 at least one; K15's device time in one batch's forward; card
+    against CPU as the R50's, at batch 1 (the Swin-L's f32 forward on the
+    CPU is the phase's longest part). Returns the counted sweep's
+    launches."""
+    return mask2former_sweep(
+        dev, 'mask2former_swin', M2F_SWIN_CFG, M2F_SWIN_BATCHES,
+        {'window_attention': M2F_SWIN_BLOCKS, 'ms_deform_attn': M2F_LAYERS,
+         'bn_act': 0},
+        ('window_attention', 'ms_deform_attn', 'splat_coverage_batched'),
+        ('k15', 'window_attention'), cpu_batch=1, seed=13)
+
+
+def mask2former_sweep(dev, phase, model_cfg, batches, per_batch, needed,
+                      timed, cpu_batch, seed):
+    """A Mask2Former type's sweep at the cells' 1024×2048, batch
+    ``M2F_B``, bf16, over ``batches`` synthetic batches: counted from zero
+    (each op of ``per_batch`` exactly that many launches a batch, each of
+    ``needed`` at least one), the count checks, then timed in a second
+    sweep with its peak memory, and the device time of ``timed`` (its key,
+    its kernel's name) in one batch's forward. Then card against CPU in
+    f32 from the same weights: the forward at 128×256, batch
+    ``cpu_batch``, and a sweep of 2 batches of ``cpu_batch`` with the same
+    draws. Emits the phase's line and returns the counted launches."""
     import torch
     from awsegbench_torch.eval.evaluator import Evaluator
     from awsegbench_torch.models import create_model
     from awsegbench_torch.weather.corruption import draw_corruption
 
-    g = torch.Generator(device=dev).manual_seed(11)
-    loader = sweep_loader(dev, g, M2F_SWEEP_BATCHES, M2F_B, M2F_H, M2F_W)
-    config = {'model': M2F_CFG, 'tpu': {'precision': 'bf16'}}
-    ev = Evaluator(create_model(M2F_CFG, device=dev, seed=0), config,
+    g = torch.Generator(device=dev).manual_seed(seed)
+    loader = sweep_loader(dev, g, batches, M2F_B, M2F_H, M2F_W)
+    config = {'model': model_cfg, 'tpu': {'precision': 'bf16'}}
+    ev = Evaluator(create_model(model_cfg, device=dev, seed=0), config,
                    auroc_mode='histogram', device=dev)
-    res, launches = run_counted(lambda: ev.run(loader, seed=1),
-                                ('ms_deform_attn', 'splat_coverage_batched',
-                                 'bn_act'), 'mask2former sweep')
-    if launches['ms_deform_attn'] != M2F_LAYERS * M2F_SWEEP_BATCHES:
-        raise AssertionError(f'mask2former sweep: {launches["ms_deform_attn"]}'
-                             f' K11 launches, not {M2F_LAYERS} a batch')
-    if launches['bn_act'] != M2F_BNS * M2F_SWEEP_BATCHES:
-        raise AssertionError(f'mask2former sweep: {launches["bn_act"]} K12 '
-                             f'launches, not {M2F_BNS} a batch')
-    n_valid = check_sweep('mask2former sweep', ev, res, loader, False,
+    res, launches = run_counted(lambda: ev.run(loader, seed=1), needed,
+                                f'{phase} sweep')
+    want = {k: v * batches for k, v in per_batch.items()}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f'{phase} sweep: launches {launches}, not '
+                             f'{want}')
+    n_valid = check_sweep(f'{phase} sweep', ev, res, loader, False,
                           members=False)
     torch.cuda.reset_peak_memory_stats()
     res = ev.run(loader, seed=1)                      # warm: timed
     peak = torch.cuda.max_memory_allocated()
-    check_sweep('mask2former sweep', ev, res, loader, False, members=False)
+    check_sweep(f'{phase} sweep', ev, res, loader, False, members=False)
     b0 = loader[0]
-    k11_ms = device_ms(lambda: ev.forward(b0['image'], b0['label'],
-                                          b0['weather_id'], g),
-                       ('ms_deform_attn',), reps=2)
+    timed_ms = device_ms(lambda: ev.forward(b0['image'], b0['label'],
+                                            b0['weather_id'], g),
+                         (timed[1],), reps=2)
     del ev, loader
     torch.cuda.empty_cache()
 
     # card against CPU: f32, the same weights and draws
-    cg = torch.Generator().manual_seed(12)
-    x = torch.randn(2, 128, 256, 3, generator=cg)
-    small = sweep_loader('cpu', cg, 2, 2, 128, 256)
+    cg = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(cpu_batch, 128, 256, 3, generator=cg)
+    small = sweep_loader('cpu', cg, 2, cpu_batch, 128, 256)
     draws = [draw_corruption(b['weather_id'], 128, 256, cg) for b in small]
-    f32 = {'model': M2F_CFG, 'tpu': {'precision': 'fp32'}}
+    f32 = {'model': model_cfg, 'tpu': {'precision': 'fp32'}}
     both = {}
     for where in (dev, 'cpu'):
-        model = create_model(M2F_CFG, device=where, seed=0)
+        model = create_model(model_cfg, device=where, seed=0)
         with torch.inference_mode():
             scores = model(x.to(where))['segmentation'].cpu()
         e = Evaluator(model, f32, device=where)
         both[str(where)] = (scores, e.run(small, seed=0, draws=draws),
                             e.last_acc)
+        del model, e
     (sg, rg, ag), (sc, rc, ac) = both[str(dev)], both['cpu']
     rel = float((sg - sc).norm() / sc.norm())
     same = float((sg.argmax(-1) == sc.argmax(-1)).float().mean())
@@ -2244,15 +2438,15 @@ def phase_mask2former(dev):
     if not (rel <= 1e-4 and same >= 0.999 and rg.keys() == rc.keys()
             and max(gaps.values()) <= 2e-3
             and all(m <= 1e-3 * n for m, n in zip(moved, per_weather))):
-        raise AssertionError(f'mask2former card vs CPU: scores rel {rel}, '
+        raise AssertionError(f'{phase} card vs CPU: scores rel {rel}, '
                              f'argmax equal {same}, moved {moved} of '
                              f'{per_weather}, gaps {gaps}')
-    emit({'phase': 'mask2former', 'batch': M2F_B, 'hw': [M2F_H, M2F_W],
-          'dtype': 'bfloat16', 'batches': M2F_SWEEP_BATCHES,
-          'valid_pixels': n_valid,
+    emit({'phase': phase, 'batch': M2F_B, 'hw': [M2F_H, M2F_W],
+          'dtype': 'bfloat16', 'batches': batches, 'valid_pixels': n_valid,
           'images_per_s': res['_throughput_images_per_sec'],
           'batch_ms': 1e3 * M2F_B / res['_throughput_images_per_sec'],
-          'peak_memory_bytes': peak, 'k11_device_ms_per_batch': k11_ms,
+          'peak_memory_bytes': peak,
+          f'{timed[0]}_device_ms_per_batch': timed_ms,
           'results': res, 'launches': launches,
           'card_vs_cpu': {'scores_rel': rel, 'argmax_equal': same,
                           'cm_moved': moved, 'cm_pixels': per_weather,
@@ -4074,6 +4268,7 @@ def main() -> int:
     single_recs, single_launches = phase_single_image(dev)
     evaluator_launches = phase_evaluator(dev)
     m2f_launches = phase_mask2former(dev)
+    m2f_swin_launches = phase_mask2former_swin(dev)
     cli_train_launches, cli_evaluate_launches = phase_cli(dev)
     pretrained_launches = phase_pretrained(dev)
     remat_off_launches, remat_on_launches = phase_remat(dev)
@@ -4090,11 +4285,12 @@ def main() -> int:
     # floor, K8 and K10 their device time without dropout
     extra = ('design', 'device_ms', 'device_ms_rate0', 'library_device_ms',
              'exp_bound_ms', 'kron_bound_ms', 'hash_bound_ms', 'hash_ops',
-             'by_hw', 'block')
+             'by_hw', 'block', 'published_ms', 'by_stage')
     paths = {'eval': eval_launches, 'train': train_launches,
              'single_image': single_launches,
              'evaluator': evaluator_launches,
              'mask2former': m2f_launches,
+             'mask2former_swin': m2f_swin_launches,
              'cli_train': cli_train_launches,
              'cli_evaluate': cli_evaluate_launches,
              'pretrained': pretrained_launches,
@@ -4110,8 +4306,9 @@ def main() -> int:
              'tp_train_rank0': tp_train_launches[0],
              'tp_train_rank1': tp_train_launches[1]}
     # the path whose launches a kernel's record gives, where it is not
-    # that of its phase: K11 serves Mask2Former's sweep alone
-    served_by = {'ms_deform_attn': 'mask2former'}
+    # that of its phase: K11 serves Mask2Former's sweeps, K15 the Swin's
+    served_by = {'ms_deform_attn': 'mask2former',
+                 'window_attention': 'mask2former_swin'}
     summary = []
     for path, path_recs in (('eval', recs), ('train', train_recs),
                             ('single_image', single_recs)):
@@ -4125,8 +4322,13 @@ def main() -> int:
                 line['launches_by_design_by_path'] = {
                     p: c[f'{name}.by_design'] for p, c in paths.items()}
             summary.append(line)
-    if len(summary) != 15:
-        raise AssertionError(f'{len(summary)} kernels in the summary, not 15')
+    if len(summary) != 16:
+        raise AssertionError(f'{len(summary)} kernels in the summary, not 16')
+    # K15 is the Swin backbone's: its sweep launches it, no other path
+    k15 = {p: c['window_attention'] for p, c in paths.items()}
+    if k15['mask2former_swin'] <= 0 or any(
+            k15[p] for p in paths if p != 'mask2former_swin'):
+        raise AssertionError(f'K15 launches by path: {k15}')
     # K12 is eval BN: every eval path launches it, no train path
     k12 = {p: c['bn_act'] for p, c in paths.items()}
     if any(k12[p] <= 0 for p in EVAL_PATHS) or any(k12[p]

@@ -1,8 +1,9 @@
 """Every hand-written kernel as a ``torch.library`` custom op
 (``ops/library.py``), on the CPU.
 
-* ``torch.library.opcheck`` on ``awseg::sr_attention`` (K1) and
-  ``awseg::seg_core`` (K2) at ragged shapes (``awseg::bn_act``, K12, in
+* ``torch.library.opcheck`` on ``awseg::sr_attention`` (K1),
+  ``awseg::seg_core`` (K2) and ``awseg::window_attention`` (K15) at
+  ragged shapes (``awseg::bn_act``, K12, in
   ``tests/test_torch_bn_act.py``), f32 and bf16: schema, fake
   implementation and the traced (dynamic-shape) dispatch all agree with
   the CPU kernel. On the ops with no fake implementation (K3–K10, the
@@ -42,6 +43,7 @@ from awsegbench_torch import _device
 from awsegbench_torch.data.pipeline import normalize_imagenet
 from awsegbench_torch.models.ensemble import EnsembleModel
 from awsegbench_torch.ops import attention, headkernels, splat
+from awsegbench_torch.ops import window_attention
 from awsegbench_torch.ops import depthkernels_train as dk
 from awsegbench_torch.ops import headkernels_train as ht
 from awsegbench_torch.ops.upconv import upsample_conv3x3
@@ -52,9 +54,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ROOT = Path(__file__).resolve().parents[1]
-# the ops with a fake implementation (K1, K2, K12, K11), then those without
+# the ops with a fake implementation (K1, K2, K12, K11, K15), then those
+# without
 OPS = ('awseg::sr_attention', 'awseg::seg_core', 'awseg::bn_act',
-       'awseg::ms_deform_attn', 'awseg::splat_coverage_batched',
+       'awseg::ms_deform_attn', 'awseg::window_attention',
+       'awseg::splat_coverage_batched',
        'awseg::splat_coverage_windowed', 'awseg::splat_coverage_tiled',
        'awseg::sr_attention_backward', 'awseg::seg_core_train',
        'awseg::seg_core_train_backward', 'awseg::seg_core_train_grad',
@@ -94,6 +98,23 @@ def test_opcheck_sr_attention(g, n, m, d, dtype):
 def test_opcheck_seg_core(b, h, w, c, nc, r, dtype):
     torch.library.opcheck(torch.ops.awseg.seg_core.default,
                           (*_seg_core_inputs(b, h, w, c, nc, dtype), r))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,hp,wp,heads,window,shift', [
+    (2, 14, 21, 3, 7, 3), (1, 5, 10, 2, 5, 0), (3, 4, 4, 1, 2, 1)])
+def test_opcheck_window_attention(b, hp, wp, heads, window, shift, dtype):
+    """K15's op at ragged shapes (windows of 7, 5 and 2, one or several a
+    side, 1 to 3 heads): schema, fake, autograd registration and the traced
+    dispatch; the op's CPU route equals its plain version bit for bit."""
+    qkv = _rand((b, hp, wp, 3 * heads * 32), dtype, 0)
+    table = _rand(((2 * window - 1) ** 2, heads), dtype, 1)
+    args = (qkv, table, heads, window, shift, 32 ** -0.5)
+    torch.library.opcheck(torch.ops.awseg.window_attention.default, args)
+    got = window_attention.window_attention(*args)
+    assert got.dtype == dtype and got.shape == (b, hp, wp, heads * 32)
+    torch.testing.assert_close(
+        got, window_attention.window_attention_plain(*args), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('name', OPS)
@@ -327,7 +348,7 @@ def _op_args(name):
     return (*args[:n], grad, *args[n:])
 
 
-@pytest.mark.parametrize('name', [op.split('::')[1] for op in OPS[4:]])
+@pytest.mark.parametrize('name', [op.split('::')[1] for op in OPS[5:]])
 def test_opcheck_ops_without_a_fake(name):
     torch.library.opcheck(getattr(torch.ops.awseg, name).default,
                           _op_args(name),
